@@ -1,0 +1,52 @@
+"""The port imports neither jax/flax nor anything of the JAX package.
+
+tests/conftest.py imports jax for every test, so the import check runs in a
+fresh interpreter; a source scan backs it up for imports that only run
+inside functions.
+"""
+
+import os
+import re
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "uni_encoder_tpu_torch")
+
+_CHECK = """
+import importlib, pkgutil, sys
+import uni_encoder_tpu_torch as port
+for m in pkgutil.walk_packages(port.__path__, "uni_encoder_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "jaxlib", "uni_encoder_tpu"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_and_chip_smoke_import_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _sources():
+    for root, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_source_scan_finds_no_jax_package_import():
+    jax_pkg = re.compile(r"^\s*(from|import)\s+uni_encoder_tpu(?!_torch)\b", re.M)
+    jax_lib = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|flax)\b", re.M)
+    found = []
+    for path in _sources():
+        with open(path) as f:
+            src = f.read()
+        for pat in (jax_pkg, jax_lib):
+            found += [f"{os.path.relpath(path, REPO)}: {m.group(0).strip()}" for m in pat.finditer(src)]
+    assert not found, found

@@ -1,0 +1,321 @@
+"""Typed configuration tree + YAML loader (the port's own copy of
+`uni_encoder_tpu/config.py`, kept field-for-field identical so one config
+drives both packages).
+
+Functional equivalent of the reference's detectron2 CfgNode add-ons
+(model/config.py: add_common_config / add_uni_encoder_config /
+add_swin_config / add_dinat_config / add_convnext_config /
+add_resnet_posenet_config) and the `_BASE_` YAML inheritance used by
+configs/**/*.yaml. Differences by design:
+
+  * frozen dataclasses (hashable, safe to share between modules);
+  * `_base_` inheritance + dotted-path CLI overrides (`a.b.c=value`);
+  * no `!!python/object/apply:eval` — computed lists are written out;
+  * `yaml` is imported inside the loaders only, so importing this module
+    does not need PyYAML.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field, fields, is_dataclass
+from pathlib import Path
+from typing import Any, Dict, Optional, Tuple
+
+
+# --------------------------------------------------------------------------- model
+
+
+@dataclass(frozen=True)
+class SwinConfig:
+    embed_dim: int = 96
+    depths: Tuple[int, ...] = (2, 2, 6, 2)
+    num_heads: Tuple[int, ...] = (3, 6, 12, 24)
+    window_size: int = 7
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    patch_norm: bool = True
+    drop_path_rate: float = 0.3  # training-only
+    out_features: Tuple[str, ...] = ("res2", "res3", "res4", "res5")
+
+
+@dataclass(frozen=True)
+class ResNetConfig:
+    depth: int = 18
+    stem_out_channels: int = 64
+    res2_out_channels: int = 64
+    norm: str = "BN"
+    out_features: Tuple[str, ...] = ("stem", "res2", "res3", "res4", "res5")
+
+
+@dataclass(frozen=True)
+class ConvNeXtConfig:
+    depths: Tuple[int, ...] = (3, 3, 9, 3)
+    dims: Tuple[int, ...] = (96, 192, 384, 768)
+    drop_path_rate: float = 0.4  # reference config.py:250 (training-only)
+    layer_scale_init_value: float = 1e-6
+    out_features: Tuple[str, ...] = ("res2", "res3", "res4", "res5")
+
+
+@dataclass(frozen=True)
+class DiNATConfig:
+    embed_dim: int = 64
+    depths: Tuple[int, ...] = (3, 4, 18, 5)
+    num_heads: Tuple[int, ...] = (2, 4, 8, 16)
+    kernel_size: int = 7
+    dilations: Tuple[Tuple[int, ...], ...] = (
+        (1, 8, 1),
+        (1, 4, 1, 4),
+        (1, 2, 1, 2, 1, 2, 1, 2, 1, 2, 1, 2, 1, 2, 1, 2, 1, 2),
+        (1, 1, 1, 1, 1),
+    )
+    mlp_ratio: float = 3.0
+    drop_path_rate: float = 0.2  # reference config.py:229 (training-only)
+    out_features: Tuple[str, ...] = ("res2", "res3", "res4", "res5")
+
+
+@dataclass(frozen=True)
+class BackboneConfig:
+    name: str = "swin"  # swin | resnet | convnext | dinat
+    swin: SwinConfig = field(default_factory=SwinConfig)
+    resnet: ResNetConfig = field(default_factory=ResNetConfig)
+    convnext: ConvNeXtConfig = field(default_factory=ConvNeXtConfig)
+    dinat: DiNATConfig = field(default_factory=DiNATConfig)
+
+
+@dataclass(frozen=True)
+class SemSegHeadConfig:
+    num_classes: int = 19
+    ignore_value: int = 255
+    convs_dim: int = 256
+    mask_dim: int = 256
+    norm: str = "GN"
+    pixel_decoder_name: str = "MSDeformAttnPixelDecoder"
+    depth_decoder_name: str = "TransDSSL"
+    in_features: Tuple[str, ...] = ("res2", "res3", "res4", "res5")
+    deformable_transformer_encoder_in_features: Tuple[str, ...] = ("res3", "res4", "res5")
+    common_stride: int = 4
+    transformer_enc_layers: int = 6
+
+
+@dataclass(frozen=True)
+class OneFormerConfig:
+    hidden_dim: int = 256
+    num_object_queries: int = 150
+    nheads: int = 8
+    dim_feedforward: int = 2048
+    dec_layers: int = 10  # reference semantics: effective masked-attn rounds = dec_layers - 1
+    class_dec_layers: int = 2
+    enc_layers: int = 0
+    pre_norm: bool = False
+    use_task_norm: bool = True
+    enforce_input_proj: bool = False
+    size_divisibility: int = 32
+    dropout: float = 0.1
+    # training loss weights (parity with reference config; criterion is ours)
+    class_weight: float = 2.0
+    mask_weight: float = 5.0
+    dice_weight: float = 5.0
+    contrastive_weight: float = 0.5
+    contrastive_temperature: float = 0.07
+    no_object_weight: float = 0.1
+    deep_supervision: bool = True
+    train_num_points: int = 12544
+    oversample_ratio: float = 3.0
+    importance_sample_ratio: float = 0.75
+
+
+@dataclass(frozen=True)
+class TextEncoderConfig:
+    # reference MODEL.TEXT_ENCODER (config.py / Base yaml: WIDTH 256,
+    # CONTEXT_LENGTH 77, NUM_LAYERS 6, VOCAB_SIZE 49408, PROJ_NUM_LAYERS 2)
+    width: int = 256
+    context_length: int = 77
+    num_layers: int = 6
+    vocab_size: int = 49408
+    proj_num_layers: int = 2
+    n_ctx: int = 16
+
+
+@dataclass(frozen=True)
+class TestConfig:
+    semantic_on: bool = True
+    instance_on: bool = True
+    panoptic_on: bool = True
+    depth_on: bool = True
+    detection_on: bool = False
+    object_mask_threshold: float = 0.8
+    overlap_threshold: float = 0.8
+    task: str = "panoptic"  # panoptic | semantic | instance
+    detections_per_image: int = 150
+    sem_seg_postprocessing_before_inference: bool = True
+    # test-time augmentation (reference TEST.AUG)
+    aug_enabled: bool = False
+    aug_min_sizes: Tuple[int, ...] = (512, 768, 1024, 1280, 1536, 1792)
+    aug_max_size: int = 4096
+    aug_flip: bool = True
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    meta_architecture: str = "UniEncoder"
+    backbone: BackboneConfig = field(default_factory=BackboneConfig)
+    sem_seg_head: SemSegHeadConfig = field(default_factory=SemSegHeadConfig)
+    one_former: OneFormerConfig = field(default_factory=OneFormerConfig)
+    text_encoder: TextEncoderConfig = field(default_factory=TextEncoderConfig)
+    test: TestConfig = field(default_factory=TestConfig)
+    pixel_mean: Tuple[float, ...] = (123.675, 116.280, 103.530)
+    pixel_std: Tuple[float, ...] = (58.395, 57.120, 57.375)
+    weights: str = ""
+    is_train: bool = False
+    is_demo: bool = False
+    # compute dtype for the jitted forward ("float32" | "bfloat16")
+    dtype: str = "float32"
+    # disparity-pyramid scale count for the sequence (depth/motion) path.
+    # The reference trains with 4 (monodepth_loss.py num_scales); the
+    # multichip dryrun's micro config uses 2 to shrink the traced step graph
+    # while keeping the identical loss/decoder structure.
+    num_depth_scales: int = 4
+
+    def __post_init__(self):
+        # the disparity decoders (TransDSSL / monodepth2 / DCMNet) emit at
+        # most scales 0..3; fail at the config instead of with a KeyError
+        # deep inside forward_sequence_train / an empty-stack monodepth loss
+        if not 1 <= self.num_depth_scales <= 4:
+            raise ValueError(
+                f"num_depth_scales must be in 1..4, got {self.num_depth_scales}"
+            )
+
+
+# --------------------------------------------------------------------------- input / data
+
+# the production cityscapes multi-scale train recipe: short side sampled from
+# 0.5x..2.0x of 1024 in 0.1 steps (reference model/config.py:110-113
+# INPUT.SEG_MIN_SIZE_TRAIN). Single source of truth — SegmentationTrainMapper
+# imports this for its keyword default.
+SEG_MIN_SIZES_TRAIN: Tuple[int, ...] = tuple(int(x * 0.1 * 1024) for x in range(5, 21))
+
+
+@dataclass(frozen=True)
+class InputConfig:
+    task_seq_len: int = 77
+    max_seq_len: int = 77
+    seg_min_size_test: int = 1024
+    seg_max_size_test: int = 2048
+    depth_min_size_test: int = 192
+    depth_max_size_test: int = 512
+    format: str = "RGB"
+    # train-time sizes (reference model/config.py:110-128 —
+    # INPUT.SEG_MIN_SIZE_TRAIN / INPUT.SEG_CROP.SIZE / INPUT.DEPTH_CROP.SIZE;
+    # defaults follow the production cityscapes recipe)
+    seg_crop_train: Tuple[int, int] = (512, 1024)
+    seg_min_size_train: Tuple[int, ...] = SEG_MIN_SIZES_TRAIN
+    seg_max_size_train: int = 4096
+    depth_hw_train: Tuple[int, int] = (192, 512)
+
+
+@dataclass(frozen=True)
+class DatasetsConfig:
+    train: Tuple[str, ...] = ("cityscapes_fine_panoptic_train",)
+    seg_test_panoptic: Tuple[str, ...] = ("cityscapes_fine_panoptic_val",)
+    seg_test_instance: Tuple[str, ...] = ("cityscapes_fine_instance_seg_val",)
+    seg_test_semantic: Tuple[str, ...] = ("cityscapes_fine_sem_seg_val",)
+    depth_test: Tuple[str, ...] = ("cityscapes_crop_test",)
+
+
+@dataclass(frozen=True)
+class SolverConfig:
+    ims_per_batch: int = 16
+    base_lr: float = 1e-4
+    max_iter: int = 90000
+    weight_decay: float = 0.05
+    backbone_multiplier: float = 0.1
+    clip_gradients_value: float = 0.01
+    amp: bool = True
+
+
+@dataclass(frozen=True)
+class Config:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    input: InputConfig = field(default_factory=InputConfig)
+    datasets: DatasetsConfig = field(default_factory=DatasetsConfig)
+    solver: SolverConfig = field(default_factory=SolverConfig)
+
+
+# --------------------------------------------------------------------------- loading
+
+
+def _coerce(value: Any, typ: Any) -> Any:
+    import typing
+
+    origin = typing.get_origin(typ)
+    if is_dataclass(typ) and isinstance(value, dict):
+        return _from_dict(typ, value)
+    if origin in (tuple, Tuple) and isinstance(value, (list, tuple)):
+        args = typing.get_args(typ)
+        if len(args) == 2 and args[1] is Ellipsis:
+            return tuple(_coerce(v, args[0]) for v in value)
+        return tuple(_coerce(v, t) for v, t in zip(value, args))
+    if typ is float and isinstance(value, int):
+        return float(value)
+    return value
+
+
+def _from_dict(cls, data: Dict[str, Any]):
+    import typing
+
+    hints = typing.get_type_hints(cls)
+    names = {f.name for f in fields(cls)}
+    kwargs = {}
+    for k, v in data.items():
+        key = k.lower()
+        if key not in names:
+            raise KeyError(f"unknown config key {k!r} for {cls.__name__}")
+        kwargs[key] = _coerce(v, hints[key])
+    return cls(**kwargs)
+
+
+def _merge(base: Dict, overrides: Dict) -> Dict:
+    out = dict(base)
+    for k, v in overrides.items():
+        if k in out and isinstance(out[k], dict) and isinstance(v, dict):
+            out[k] = _merge(out[k], v)
+        else:
+            out[k] = v
+    return out
+
+
+def load_yaml_tree(path: str) -> Dict[str, Any]:
+    import yaml
+
+    p = Path(path)
+    with open(p) as f:
+        data = yaml.safe_load(f) or {}
+    base = data.pop("_base_", None)
+    if base:
+        parent = load_yaml_tree(str((p.parent / base).resolve()))
+        data = _merge(parent, data)
+    return data
+
+
+def _set_dotted(tree: Dict, dotted: str, value: Any) -> None:
+    import yaml
+
+    keys = dotted.split(".")
+    node = tree
+    for k in keys[:-1]:
+        node = node.setdefault(k, {})
+    node[keys[-1]] = yaml.safe_load(value) if isinstance(value, str) else value
+
+
+def load_config(path: Optional[str] = None, overrides: Optional[list] = None) -> Config:
+    """Load a Config from YAML (with `_base_` inheritance) + `a.b.c=v` overrides."""
+    tree: Dict[str, Any] = load_yaml_tree(path) if path else {}
+    for ov in overrides or []:
+        key, _, val = ov.partition("=")
+        _set_dotted(tree, key.strip(), val.strip())
+    return _from_dict(Config, tree)
+
+
+def to_dict(cfg) -> Dict[str, Any]:
+    return dataclasses.asdict(cfg)
