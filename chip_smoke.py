@@ -5,15 +5,17 @@ requests through the port's entry points, and reports per-kernel times.
 
     python3 chip_smoke.py
 
-Phases, one JSON line each: device, build, k1_vs_plain, k2_vs_plain, serve,
-kernels_on_served_tensors, reference_small. Then the card's name and power limit as
+Phases, one JSON line each: device, build, k1_vs_plain, k1_class_chunks,
+k2_vs_plain, serve, stages, profile, kernels_on_served_tensors,
+reference_small. Then the card's name and power limit as
 nvidia-smi reports them, the {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Any failure raises and the script exits
 non-zero without the last line. It needs a CUDA card and the repository's
 `uni_encoder_tpu_torch` package beside it; it imports nothing of JAX.
 
 Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of HBM and 67 TFLOP/s
-of fp32 outside the tensor cores (at the 700 W power limit).
+of fp32 outside the tensor cores (at the 700 W power limit); K1's bound is
+also given with its semantic product on TF32 tensor cores (495 TFLOP/s).
 """
 
 import json
@@ -27,9 +29,13 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 SEG_H, SEG_W = 1024, 2048
-N_REQUESTS = 3
+N_REQUESTS = 3  # served with the kernels' launch counts read
+N_TIMED = 10  # timed stage by stage
+N_PROFILED = 3  # under torch.profiler
+STAGES = ("task_mlp", "backbone", "pixel_decoder", "predictor", "postprocess")
 TASK = "The task is panoptic"
 
 
@@ -106,10 +112,22 @@ def compare_msda(got, ref, fp32):
 
 
 def k1_bound(Q, K, h, w):
+    """Bytes and fp32 operations; of those, 2 * K * Q * H * W are the
+    semantic product clsprob @ sig, the rest the upsample, sigmoid, argmaxes
+    and per-query sums."""
     H, W = 4 * h, 4 * w
     nbytes = Q * h * w * 2 + Q * (K + 2) * 4 + 2 * H * W + Q * 9 * 4  # logits, class probs, maps, per-query
     flops = (2 * K + 20) * Q * H * W
     return nbytes, flops
+
+
+def k1_bound_semantic_on_tensor_cores(Q, K, h, w):
+    """K1's least time if its semantic product ran on TF32 tensor cores
+    beside the rest on CUDA cores (ms): the largest of the byte time and the
+    two units' operation times."""
+    nbytes, flops = k1_bound(Q, K, h, w)
+    semantic = 2 * K * Q * 16 * h * w
+    return max(nbytes / HBM_BYTES_PER_S, semantic / TF32_FLOP_PER_S, (flops - semantic) / FP32_FLOP_PER_S) * 1e3
 
 
 def k2_bound(B, Lq, S, M, D, L, P, value_bytes):
@@ -182,9 +200,25 @@ def main():
     torch.cuda.empty_cache()
     k1["deterministic_reruns"] = 2
     k1["kept_queries"] = int(got["is_new_segment"].sum().item())
-    emit("k1_vs_plain", shape={"Q": Q, "K": K, "h": h, "w": w}, ms=k1_ms, plain_ms=k1_plain_ms, **k1)
+    emit("k1_vs_plain", shape={"Q": Q, "K": K, "h": h, "w": w}, ms=k1_ms, plain_ms=k1_plain_ms,
+         bound_ms_semantic_on_tf32_tensor_cores=k1_bound_semantic_on_tensor_cores(Q, K, h, w), **k1)
     results["k1"] = dict(max_abs_err=k1["scores_max_abs_err"], ms=k1_ms, plain_ms=k1_plain_ms,
                          **bound_fields(*k1_bound(Q, K, h, w)))
+
+    # K1 at other class counts: each register chunk the kernel is built with
+    # (8, 16, 24 at K = 19 above, 32), the loop over class chunks (K > 32),
+    # and more than 48 KB of shared memory (Q = 150, K = 133)
+    chunks = {}
+    for Qc, Kc in ((20, 7), (20, 13), (20, 29), (20, 40), (150, 133)):
+        cls, masks = blobby(Kc, Qc, Kc, 16, 32)
+        cls, masks = cls.to(dev), masks.to(dev, torch.bfloat16)
+        thing = (torch.arange(Kc) >= Kc // 2).to(dev)
+        kw = dict(object_mask_threshold=0.3, overlap_threshold=0.5, topk=Qc)
+        got = fused_multitask_inference(cls, masks, thing, **kw)
+        chunks[f"Q{Qc}_K{Kc}"] = compare_post(got, fused_multitask_inference_plain(cls, masks, thing, **kw), 3e-3)
+        if not all(torch.equal(v, fused_multitask_inference(cls, masks, thing, **kw)[k]) for k, v in got.items()):
+            raise AssertionError(f"K1 rerun at Q={Qc}, K={Kc} is not byte-identical")
+    emit("k1_class_chunks", hw=[16, 32], results=chunks)
 
     # ------------------------------------------------- K2 against its plain
     shapes = ((SEG_H // 32, SEG_W // 32), (SEG_H // 16, SEG_W // 16), (SEG_H // 8, SEG_W // 8))
@@ -270,6 +304,57 @@ def main():
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"serve checks failed: {failed}")
+
+    # --------------- where a request's time goes: stage by stage, then traced
+    # CUDA events recorded as each stage's module is entered (and as the
+    # query decoder returns), and after the post-process
+    marks = []
+
+    def mark(*_):
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+
+    handles = [m.register_forward_pre_hook(mark)
+               for m in (model.task_mlp, model.backbone, model.pixel_decoder, model.predictor)]
+    handles.append(model.predictor.register_forward_hook(mark))
+    stage_ms = {s: [] for s in STAGES}
+    wall_ms = []
+    for _ in range(N_TIMED):
+        marks.clear()
+        t0 = time.perf_counter()
+        request()
+        mark()
+        torch.cuda.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        if len(marks) != len(STAGES) + 1:
+            raise AssertionError(f"{len(marks)} stage marks in one request, expected {len(STAGES) + 1}")
+        for i, s in enumerate(STAGES):
+            stage_ms[s].append(marks[i].elapsed_time(marks[i + 1]))
+    for hd in handles:
+        hd.remove()
+    wall_median = float(np.median(wall_ms))
+    emit("stages", requests=N_TIMED, request_wall_ms=wall_ms, request_wall_ms_median=wall_median,
+         stage_ms_median={s: float(np.median(v)) for s, v in stage_ms.items()}, card=smi)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(N_PROFILED):
+            request()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3 / N_PROFILED
+    on_device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel_ms = sum(e.self_device_time_total for e in on_device) / 1e3 / N_PROFILED
+    top = sorted(on_device, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    # the profiler slows the host, not the card: the traced wall time is
+    # longer than an untraced request, so the busy share is given both ways
+    emit("profile", requests=N_PROFILED, kernel_ms_per_request=kernel_ms,
+         traced_wall_ms_per_request=traced_ms, busy_share_traced=kernel_ms / traced_ms,
+         busy_share_untraced=kernel_ms / wall_median,
+         kernel_launches_per_request=sum(e.count for e in on_device) / N_PROFILED,
+         top_kernels_ms_per_request={e.key[:90]: e.self_device_time_total / 1e3 / N_PROFILED for e in top},
+         card=smi)
 
     # ------------------------- the kernels on the served request's own tensors
     pd = model.pixel_decoder

@@ -78,10 +78,14 @@ def _blobby(seed, Q, K, h, w):
     return torch.from_numpy(cls), torch.from_numpy(masks).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("Q,K,h,w", [(20, 7, 16, 32), (37, 19, 21, 45)])
+@pytest.mark.parametrize("Q,K,h,w", [(20, 7, 16, 32), (37, 19, 21, 45), (20, 13, 16, 32), (20, 29, 16, 32),
+                                     (20, 40, 16, 32), (150, 133, 16, 32)])
 def test_fused_postprocess_kernel_matches_plain(cuda, Q, K, h, w):
     """tests/test_fused_postprocess.py tolerances; reruns byte-identical.
-    21 x 45 is ragged against the kernel's 64-row x 32-column tiles."""
+    21 x 45 is ragged against the kernel's 64-row x 32-column tiles. K = 7,
+    13, 19 and 29 run the 8-, 16-, 24- and 32-class register chunk once;
+    K = 40 and 133 loop over 32-class chunks, and Q = 150 x K = 133 needs
+    more than 48 KB of shared memory."""
     from uni_encoder_tpu_torch.inference.fused_postprocess import (
         fused_multitask_inference,
         fused_multitask_inference_plain,

@@ -105,18 +105,20 @@ def assert_post_close(got, ref):
     np.testing.assert_allclose(got["boxes"], ref["boxes"], atol=1.0)
 
 
-@pytest.mark.parametrize("fixture", ["blobby0", "blobby1", "zero_logits"])
+@pytest.mark.parametrize("fixture", ["blobby0", "blobby1", "zero_logits", "blobby2_k40"])
 def test_fused_plain_matches_jax_kernel_interpret(fixture):
     """The plain version of K1 (what a CPU tensor runs) against the JAX
-    Pallas kernel in interpret mode."""
+    Pallas kernel in interpret mode. K = 40 is more classes than the CUDA
+    kernel keeps in registers at once (it then loops over class chunks)."""
     from uni_encoder_tpu.inference.fused_postprocess import fused_multitask_inference as jfused
     from uni_encoder_tpu_torch.inference import fused_multitask_inference
 
     if fixture == "zero_logits":
         cls, masks, thing = _zero_logits()
     else:
-        Q, K = 20, 7
-        cls, masks = _blobby(int(fixture[-1]), Q, K, 16, 32)
+        seed, _, k = fixture[len("blobby"):].partition("_k")
+        Q, K = 20, int(k or 7)
+        cls, masks = _blobby(int(seed), Q, K, 16, 32)
         thing = np.zeros(K, bool)
         thing[K // 2 :] = True
     Q = cls.shape[0]
