@@ -13,13 +13,17 @@ nvidia-smi reports them, the {"kernels": [...]} line, and last
 non-zero without the last line. It needs a CUDA card and the repository's
 `uni_encoder_tpu_torch` package beside it; it imports nothing of JAX.
 
-Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of HBM and 67 TFLOP/s
-of fp32 outside the tensor cores (at the 700 W power limit); K1's bound is
-also given with its semantic product on TF32 tensor cores (495 TFLOP/s).
+Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of HBM, 67 TFLOP/s
+of fp32 outside the tensor cores and 495 TFLOP/s of TF32 on them (at the
+700 W power limit). K1 runs its semantic product on TF32 tensor cores, so
+its bound counts that product at the TF32 rate; the all-CUDA-core bound is
+reported beside it. The build phase reports ptxas's stack-frame bytes for
+each kernel (K2 must have none) and the HMMA count of K1's SASS.
 """
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -130,10 +134,54 @@ def k1_bound_semantic_on_tensor_cores(Q, K, h, w):
     return max(nbytes / HBM_BYTES_PER_S, semantic / TF32_FLOP_PER_S, (flops - semantic) / FP32_FLOP_PER_S) * 1e3
 
 
-def k2_bound(B, Lq, S, M, D, L, P, value_bytes):
-    nbytes = B * S * M * D * value_bytes + B * Lq * M * L * P * 3 * 4 + B * Lq * M * D * value_bytes
-    flops = B * Lq * M * L * P * (8 * D + 20)  # 4 corners x D fused multiply-adds + weights
+def k2_bound(B, Lq, S, M, D, L, P, nbytes_el):
+    """The fused contract: value, offsets and logits in the model dtype and
+    fp32 ref_abs read once, the output written once."""
+    nbytes = (B * S * M * D + B * Lq * M * L * P * 3 + B * Lq * M * D) * nbytes_el + L * Lq * 2 * 4
+    # 4 corners x D fused multiply-adds, corner weights, softmax and location
+    flops = B * Lq * M * L * P * (8 * D + 30)
     return nbytes, flops
+
+
+def ptxas_stack_frames(log_path, kernel):
+    """Stack-frame bytes ptxas reports for each build of `kernel` (its
+    template instantiations), from an `nvcc -Xptxas -v` log."""
+    frames, current = [], None
+    with open(log_path, errors="replace") as f:
+        for line in f:
+            if "Function properties for" in line:
+                current = line.rsplit("for", 1)[1].strip()
+            elif "bytes stack frame" in line and current is not None:
+                if kernel in current:
+                    frames.append(int(line.split("bytes stack frame")[0].split()[-1]))
+                current = None
+    return frames
+
+
+def sass_count(lib_path, opcode):
+    """How many `opcode` instructions the built library's SASS holds, or
+    None where cuobjdump is not installed."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return None
+    sass = subprocess.run([exe, "-sass", lib_path], capture_output=True, text=True, timeout=120).stdout
+    return sum(1 for line in sass.splitlines() if f" {opcode}" in line)
+
+
+def msda_inputs(g, B, Lq, M, L, P, dtype, dev):
+    """Raw Linear outputs as the served model gives them: offsets around the
+    module's directional initialisation (head angle, scaled by point index
+    + 1) plus noise, with 1 in 50 pushed far out of range; logits of spread
+    comparable to trained heads."""
+    ang = torch.arange(M, dtype=torch.float32) * (2 * np.pi / M)
+    grid = torch.stack([ang.cos(), ang.sin()], -1)
+    grid = grid / grid.abs().amax(-1, keepdim=True)
+    grid = grid[:, None, None, :] * torch.arange(1, P + 1, dtype=torch.float32)[None, None, :, None]
+    off = grid.expand(M, L, P, 2) + torch.randn(B, Lq, M, L, P, 2, generator=g) * 1.5
+    far = torch.rand(B, Lq, M, L, P, 1, generator=g) < 0.02
+    off = torch.where(far, off * 40.0, off)
+    logits = torch.randn(B, Lq, M * L * P, generator=g) * 2.0
+    return off.reshape(B, Lq, -1).to(dev, dtype).contiguous(), logits.to(dev, dtype).contiguous()
 
 
 def bound_fields(nbytes, flops):
@@ -157,7 +205,8 @@ def main():
         fused_postprocess_cuda,
     )
     from uni_encoder_tpu_torch.models.oneformer import UniEncoder
-    from uni_encoder_tpu_torch.ops.ms_deform_attn import ms_deform_attn_cuda, ms_deform_attn_plain
+    from uni_encoder_tpu_torch.models.pixel_decoders.msdeformattn import absolute_reference_points
+    from uni_encoder_tpu_torch.ops.ms_deform_attn import ms_deform_attn_fused_cuda, ms_deform_attn_fused_plain
 
     # ---------------------------------------------------------------- device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -177,7 +226,15 @@ def main():
     for name in kernels.SOURCES:
         with open(kernels.build_log_path(name), errors="replace") as f:
             ptxas[name] = [l.strip() for l in f if "Used" in l or "spill" in l]
-    emit("build", seconds=time.perf_counter() - t0, per_source=secs, ptxas=ptxas)
+    k2_frames = ptxas_stack_frames(kernels.build_log_path("ms_deform_attn"), "msda_fused_kernel")
+    k1_frames = ptxas_stack_frames(kernels.build_log_path("fused_postprocess"), "fused_kernel")
+    k1_hmma = sass_count(kernels.library_path("fused_postprocess"), "HMMA")
+    emit("build", seconds=time.perf_counter() - t0, per_source=secs, ptxas=ptxas,
+         k2_stack_frame_bytes=k2_frames, k1_stack_frame_bytes=k1_frames, k1_sass_hmma=k1_hmma)
+    if not k2_frames or any(k2_frames):
+        raise AssertionError(f"K2 stack frames {k2_frames}: expected 0 bytes for every instantiation")
+    if k1_hmma == 0:
+        raise AssertionError("K1's SASS holds no HMMA: the semantic product is not on tensor cores")
 
     results = {}
 
@@ -195,19 +252,30 @@ def main():
         if not (torch.equal(got[k], again[0][k]) and torch.equal(got[k], again[1][k])):
             raise AssertionError(f"K1 rerun is not byte-identical in {k}")
     k1_ms = cuda_ms(lambda: fused_multitask_inference(cls, masks, thing, **kw), 20)
+    # the kernel's wrapper alone, on the inputs the prologue gives it
+    probs = torch.softmax(cls, dim=-1)
+    keep = (probs.argmax(-1) != K) & (probs.amax(-1) > kw["object_mask_threshold"])
+    k_in = (masks, probs[:, :K].contiguous(), torch.where(keep, probs.amax(-1), 0.0).contiguous(),
+            torch.where(keep, 0.0, -1.0).contiguous())
+    k1_kernel_ms = cuda_ms(lambda: fused_postprocess_cuda(*k_in), 20)
     k1_plain_ms = cuda_ms(lambda: fused_multitask_inference_plain(cls, masks, thing, **kw), 3)
     del ref, again
     torch.cuda.empty_cache()
     k1["deterministic_reruns"] = 2
     k1["kept_queries"] = int(got["is_new_segment"].sum().item())
+    k1_fields = bound_fields(*k1_bound(Q, K, h, w))
     emit("k1_vs_plain", shape={"Q": Q, "K": K, "h": h, "w": w}, ms=k1_ms, plain_ms=k1_plain_ms,
+         kernel_ms=k1_kernel_ms,
+         bound_ms_all_on_cuda_cores=k1_fields["bound_ms"],
          bound_ms_semantic_on_tf32_tensor_cores=k1_bound_semantic_on_tensor_cores(Q, K, h, w), **k1)
-    results["k1"] = dict(max_abs_err=k1["scores_max_abs_err"], ms=k1_ms, plain_ms=k1_plain_ms,
-                         **bound_fields(*k1_bound(Q, K, h, w)))
+    # the kernel runs its semantic product on TF32 tensor cores, so its bound
+    # counts that product at the TF32 rate
+    k1_fields["bound_ms"] = k1_bound_semantic_on_tensor_cores(Q, K, h, w)
+    results["k1"] = dict(max_abs_err=k1["scores_max_abs_err"], ms=k1_ms, plain_ms=k1_plain_ms, **k1_fields)
 
-    # K1 at other class counts: each register chunk the kernel is built with
-    # (8, 16, 24 at K = 19 above, 32), the loop over class chunks (K > 32),
-    # and more than 48 KB of shared memory (Q = 150, K = 133)
+    # K1 at other class counts: each class-group width the kernel is built
+    # with (8, 16, 24 at K = 19 above, 32) and the loop over class groups
+    # (K > 32, up to 5 groups at Q = 150, K = 133)
     chunks = {}
     for Qc, Kc in ((20, 7), (20, 13), (20, 29), (20, 40), (150, 133)):
         cls, masks = blobby(Kc, Qc, Kc, 16, 32)
@@ -221,31 +289,29 @@ def main():
     emit("k1_class_chunks", hw=[16, 32], results=chunks)
 
     # ------------------------------------------------- K2 against its plain
+    # the fused contract: raw offsets and logits, cached ref_abs
     shapes = ((SEG_H // 32, SEG_W // 32), (SEG_H // 16, SEG_W // 16), (SEG_H // 8, SEG_W // 8))
     B, M, D, L, P = 1, 8, 32, 3, 4
     S = sum(a * b for a, b in shapes)
     Lq = S
     g = torch.Generator(device="cpu").manual_seed(1)
+    ref_abs = absolute_reference_points(shapes, dev)
     value = torch.randn(B, S, M, D, generator=g).to(dev)
-    wh = torch.tensor([[b, a] for a, b in shapes], dtype=torch.float32)
-    loc = (torch.rand(B, Lq, M, L, P, 2, generator=g) * 1.4 - 0.2)  # some out of range
-    loc = (loc * wh[None, None, None, :, None, :] - 0.5).to(dev).contiguous()
-    attw = torch.rand(B, Lq, M, L, P, generator=g)
-    attw = (attw / attw.sum(dim=(3, 4), keepdim=True)).to(dev).contiguous()
-    err32 = compare_msda(ms_deform_attn_cuda(value, shapes, loc, attw),
-                         ms_deform_attn_plain(value, shapes, loc, attw), fp32=True)
-    vb = value.to(torch.bfloat16)
-    err16 = compare_msda(ms_deform_attn_cuda(vb, shapes, loc, attw),
-                         ms_deform_attn_plain(vb, shapes, loc, attw), fp32=False)
-    k2_ms = cuda_ms(lambda: ms_deform_attn_cuda(vb, shapes, loc, attw), 50)
-    k2_plain_ms = cuda_ms(lambda: ms_deform_attn_plain(vb, shapes, loc, attw), 5)
-    k2_ms_fp32 = cuda_ms(lambda: ms_deform_attn_cuda(value, shapes, loc, attw), 50)
+    off, logits = msda_inputs(g, B, Lq, M, L, P, torch.float32, dev)
+    err32 = compare_msda(ms_deform_attn_fused_cuda(value, shapes, off, logits, ref_abs),
+                         ms_deform_attn_fused_plain(value, shapes, off, logits, ref_abs), fp32=True)
+    k2_ms_fp32 = cuda_ms(lambda: ms_deform_attn_fused_cuda(value, shapes, off, logits, ref_abs), 50)
+    vb, ob, lb = value.to(torch.bfloat16), off.to(torch.bfloat16), logits.to(torch.bfloat16)
+    err16 = compare_msda(ms_deform_attn_fused_cuda(vb, shapes, ob, lb, ref_abs),
+                         ms_deform_attn_fused_plain(vb, shapes, ob, lb, ref_abs), fp32=False)
+    k2_ms = cuda_ms(lambda: ms_deform_attn_fused_cuda(vb, shapes, ob, lb, ref_abs), 50)
+    k2_plain_ms = cuda_ms(lambda: ms_deform_attn_fused_plain(vb, shapes, ob, lb, ref_abs), 5)
     emit("k2_vs_plain", shape={"B": B, "Lq": Lq, "S": S, "M": M, "D": D, "L": L, "P": P},
          fp32_max_abs_err=err32, bf16_max_abs_err=err16, ms=k2_ms, plain_ms=k2_plain_ms, fp32_ms=k2_ms_fp32,
-         tolerance="fp32 atol/rtol 1e-5; bf16 within 1 ulp + 1e-5")
-    results["k2"] = dict(max_abs_err=err16, ms=k2_ms, plain_ms=k2_plain_ms,
+         stack_frame_bytes=k2_frames, tolerance="fp32 atol/rtol 1e-5; bf16 within 1 ulp + 1e-5")
+    results["k2"] = dict(max_abs_err=err16, ms=k2_ms, plain_ms=k2_plain_ms, stack_frame_bytes=max(k2_frames),
                          **bound_fields(*k2_bound(B, Lq, S, M, D, L, P, 2)))
-    del value, vb, loc, attw
+    del value, vb, off, ob, logits, lb
     torch.cuda.empty_cache()
 
     # ------------------------------------------- serve three full-width requests
@@ -276,14 +342,14 @@ def main():
     warmup_ms = (time.perf_counter() - t0) * 1e3
 
     fused_postprocess_cuda.launches = 0
-    ms_deform_attn_cuda.launches = 0
+    ms_deform_attn_fused_cuda.launches = 0
     request_ms = []
     for _ in range(N_REQUESTS):
         t0 = time.perf_counter()
         out, posts = request()
         torch.cuda.synchronize()
         request_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {"k1": fused_postprocess_cuda.launches, "k2": ms_deform_attn_cuda.launches}
+    launches = {"k1": fused_postprocess_cuda.launches, "k2": ms_deform_attn_fused_cuda.launches}
 
     post = posts[0]
     Qm = cfg.one_former.num_object_queries
@@ -362,9 +428,10 @@ def main():
         src, pos, ref_abs, shapes = pd.encode(model.backbone(images))
         attn0 = pd.transformer.encoder.layers[0].self_attn
         value = attn0.value_proj(src).view(src.shape[0], src.shape[1], attn0.n_heads, -1)
-        loc, attw = attn0.sampling_inputs(src + pos, ref_abs)
-    k2_err = compare_msda(ms_deform_attn_cuda(value, shapes, loc, attw),
-                          ms_deform_attn_plain(value, shapes, loc, attw), fp32=False)
+        off = attn0.sampling_offsets(src + pos)
+        logits = attn0.attention_weights(src + pos)
+    k2_err = compare_msda(ms_deform_attn_fused_cuda(value, shapes, off, logits, ref_abs),
+                          ms_deform_attn_fused_plain(value, shapes, off, logits, ref_abs), fp32=False)
     logits, masks = out["pred_logits"][0], out["pred_masks"][0]
     kw = dict(object_mask_threshold=0.8, overlap_threshold=0.8, topk=150)
     k1_real = compare_post(fused_multitask_inference(logits, masks, thing, **kw),
@@ -397,14 +464,15 @@ def main():
     for key, name, source, replaces in (
         ("k1", "fused_multitask_inference", "uni_encoder_tpu_torch/kernels/csrc/fused_postprocess.cu",
          "uni_encoder_tpu/inference/fused_postprocess.py:61"),
-        ("k2", "ms_deform_attn", "uni_encoder_tpu_torch/kernels/csrc/ms_deform_attn.cu",
+        ("k2", "ms_deform_attn_fused", "uni_encoder_tpu_torch/kernels/csrc/ms_deform_attn.cu",
          "uni_encoder_tpu/ops/ms_deform_attn.py:73"),
     ):
         r = results[key]
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                     "library_ms": None})
+                     "library_ms": None,
+                     **({"stack_frame_bytes": r["stack_frame_bytes"]} if "stack_frame_bytes" in r else {})})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)

@@ -19,51 +19,66 @@ def cuda():
     return torch.device("cuda")
 
 
-def _msda_inputs(B, M, D, Lq, P, shapes, seed, device):
+def _msda_inputs(B, M, D, Lq, shapes, seed, device, dtype):
+    """Raw offsets and logits of the fused contract for L = 3, P = 4, with
+    about one offset in ten far outside its map."""
+    from uni_encoder_tpu_torch.models.pixel_decoders.msdeformattn import absolute_reference_points
+
     rng = np.random.RandomState(seed)
     S = sum(h * w for h, w in shapes)
-    L = len(shapes)
-    value = torch.from_numpy(rng.randn(B, S, M, D).astype(np.float32)).to(device)
-    loc = rng.uniform(-0.2, 1.2, size=(B, Lq, M, L, P, 2)).astype(np.float32)  # some out of range
-    wh = np.array([[w, h] for h, w in shapes], np.float32)
-    loc_abs = torch.from_numpy(loc * wh[None, None, None, :, None, :] - np.float32(0.5)).to(device)
-    attn = rng.rand(B, Lq, M, L, P).astype(np.float32)
-    attn = torch.from_numpy(attn / attn.reshape(B, Lq, M, -1).sum(-1)[..., None, None]).to(device)
-    return value, loc_abs.contiguous(), attn.contiguous()
+    L, P = len(shapes), 4
+    value = rng.randn(B, S, M, D).astype(np.float32)
+    off = rng.uniform(-3, 3, size=(B, Lq, M * L * P * 2)).astype(np.float32)
+    off[rng.rand(*off.shape) < 0.1] *= 10
+    logits = (rng.randn(B, Lq, M * L * P) * 2).astype(np.float32)
+    ref_abs = absolute_reference_points(tuple(shapes), device)[:, :Lq].contiguous()
+    return tuple(torch.from_numpy(x).to(device, dtype) for x in (value, off, logits)) + (ref_abs,)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("D", [8, 32, 24])
-def test_ms_deform_attn_kernel_matches_plain(cuda, D):
-    """fp32 at atol/rtol 1e-5; bf16 values within one bf16 ulp of the plain
-    version plus the fp32 atol 1e-5 (both accumulate in fp32 and round
-    once; the atol covers sums that cancel to near zero)."""
-    from uni_encoder_tpu_torch.ops.ms_deform_attn import ms_deform_attn_cuda, ms_deform_attn_plain
+def test_ms_deform_attn_kernel_matches_plain(cuda, D, dtype):
+    """The fused kernel against sampling_inputs + ms_deform_attn_plain on
+    the ragged levels ((6, 8), (3, 4), (2, 2)). fp32 at atol/rtol 1e-5;
+    bf16 within one bf16 ulp of the plain version plus the fp32 atol 1e-5
+    (both accumulate in fp32 and round once; the atol covers sums that
+    cancel to near zero)."""
+    from uni_encoder_tpu_torch.ops.ms_deform_attn import ms_deform_attn_fused_cuda, ms_deform_attn_fused_plain
 
     shapes = ((6, 8), (3, 4), (2, 2))
-    value, loc, attn = _msda_inputs(2, 4, D, 50, 4, shapes, 0, cuda)
-    n0 = ms_deform_attn_cuda.launches
-    got = ms_deform_attn_cuda(value, shapes, loc, attn)
-    assert ms_deform_attn_cuda.launches == n0 + 1
-    torch.testing.assert_close(got, ms_deform_attn_plain(value, shapes, loc, attn), atol=1e-5, rtol=1e-5)
-
-    vb = value.to(torch.bfloat16)
-    got = ms_deform_attn_cuda(vb, shapes, loc, attn).float()
-    ref = ms_deform_attn_plain(vb, shapes, loc, attn).float()
-    ulp = torch.where(ref == 0, torch.zeros_like(ref), 2.0 ** (torch.floor(torch.log2(ref.abs())) - 7))
-    assert ((got - ref).abs() <= ulp + 1e-5).all()
+    value, off, logits, ref_abs = _msda_inputs(2, 4, D, 64, shapes, 0, cuda, getattr(torch, dtype))
+    n0 = ms_deform_attn_fused_cuda.launches
+    got = ms_deform_attn_fused_cuda(value, shapes, off, logits, ref_abs)
+    assert ms_deform_attn_fused_cuda.launches == n0 + 1
+    assert got.dtype == value.dtype and tuple(got.shape) == (2, 64, 4 * D)
+    ref = ms_deform_attn_fused_plain(value, shapes, off, logits, ref_abs)
+    if dtype == "float32":
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    else:
+        got, ref = got.float(), ref.float()
+        ulp = torch.where(ref == 0, torch.zeros_like(ref), 2.0 ** (torch.floor(torch.log2(ref.abs())) - 7))
+        assert ((got - ref).abs() <= ulp + 1e-5).all()
+    assert torch.equal(ms_deform_attn_fused_cuda(value, shapes, off, logits, ref_abs).float(), got.float())
 
 
 def test_ms_deform_attn_kernel_rejects_bad_inputs(cuda):
-    from uni_encoder_tpu_torch.ops.ms_deform_attn import ms_deform_attn_cuda
+    from uni_encoder_tpu_torch.ops.ms_deform_attn import ms_deform_attn_fused_cuda
 
     shapes = ((6, 8), (3, 4), (2, 2))
-    value, loc, attn = _msda_inputs(1, 2, 8, 5, 4, shapes, 1, cuda)
+    value, off, logits, ref_abs = _msda_inputs(1, 2, 8, 5, shapes, 1, cuda, torch.float32)
+    bad = (
+        (value.half(), off, logits, ref_abs),  # dtype
+        (value, off.to(torch.bfloat16), logits, ref_abs),  # mixed dtypes
+        (value, off.repeat(1, 1, 2)[..., ::2], logits, ref_abs),  # strides
+        (value, off, logits[..., :-2], ref_abs),  # shape
+        (value, off, logits, ref_abs.cpu()),  # device
+        (value[..., :7].contiguous(), off, logits, ref_abs),  # odd D
+    )
+    for args in bad:
+        with pytest.raises(ValueError):
+            ms_deform_attn_fused_cuda(args[0], shapes, *args[1:])
     with pytest.raises(ValueError):
-        ms_deform_attn_cuda(value.half(), shapes, loc, attn)
-    with pytest.raises(ValueError):
-        ms_deform_attn_cuda(value, shapes, loc.transpose(1, 2), attn)
-    with pytest.raises(ValueError):
-        ms_deform_attn_cuda(value, ((6, 8), (3, 4)), loc, attn)
+        ms_deform_attn_fused_cuda(value, ((6, 8), (3, 4)), off, logits, ref_abs)
 
 
 def _blobby(seed, Q, K, h, w):
@@ -79,13 +94,14 @@ def _blobby(seed, Q, K, h, w):
 
 
 @pytest.mark.parametrize("Q,K,h,w", [(20, 7, 16, 32), (37, 19, 21, 45), (20, 13, 16, 32), (20, 29, 16, 32),
-                                     (20, 40, 16, 32), (150, 133, 16, 32)])
+                                     (20, 40, 16, 32), (150, 133, 16, 32), (23, 19, 5, 19)])
 def test_fused_postprocess_kernel_matches_plain(cuda, Q, K, h, w):
     """tests/test_fused_postprocess.py tolerances; reruns byte-identical.
-    21 x 45 is ragged against the kernel's 64-row x 32-column tiles. K = 7,
-    13, 19 and 29 run the 8-, 16-, 24- and 32-class register chunk once;
-    K = 40 and 133 loop over 32-class chunks, and Q = 150 x K = 133 needs
-    more than 48 KB of shared memory."""
+    The kernel's tiles are 4 output rows x 64 columns and its query chunks
+    32: 21 x 45 (84 x 180 out, Q = 37) and 5 x 19 (20 x 76 out, Q = 23) are
+    ragged against both. K = 7, 13, 19 and 29 take one class group of 1, 2,
+    3 and 4 mma n-tiles; K = 40 and 133 loop over 32-class groups, and
+    Q = 150, K = 133 is the largest class count with the most queries."""
     from uni_encoder_tpu_torch.inference.fused_postprocess import (
         fused_multitask_inference,
         fused_multitask_inference_plain,

@@ -211,7 +211,7 @@ def test_ms_deform_attn_plain_matches_jax(value_dtype):
     values the output is compared after both sides round to bf16 once."""
     from uni_encoder_tpu.ops.ms_deform_attn import ms_deform_attn as jmsda
     from uni_encoder_tpu.ops.ms_deform_attn import ms_deform_attn_corners as jcorners
-    from uni_encoder_tpu_torch.ops import ms_deform_attn
+    from uni_encoder_tpu_torch.ops.ms_deform_attn import ms_deform_attn_plain
 
     rng = np.random.RandomState(11)
     B, M, D, Lq, P = 2, 4, 8, 37, 4
@@ -228,7 +228,7 @@ def test_ms_deform_attn_plain_matches_jax(value_dtype):
     jv = jnp.asarray(value, value_dtype)
     ref = np.asarray(jcorners(jv, shapes, jnp.asarray(loc), jnp.asarray(attn)).astype(jnp.float32))
     tv = t(value).to(getattr(torch, value_dtype))
-    got = ms_deform_attn(tv, shapes, t(loc_abs), t(attn))
+    got = ms_deform_attn_plain(tv, shapes, t(loc_abs), t(attn))
     assert got.dtype == tv.dtype and tuple(got.shape) == (B, Lq, M * D)
     if value_dtype == "float32":
         np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)

@@ -86,8 +86,8 @@ def fused_postprocess_cuda(
         for aux in (lib.fused_postprocess_partial_size, lib.fused_postprocess_smem_bytes):
             aux.restype = ctypes.c_longlong
         lib.fused_postprocess_partial_size.argtypes = [ctypes.c_int] * 3
-        lib.fused_postprocess_smem_bytes.argtypes = [ctypes.c_int] * 2
-    smem = lib.fused_postprocess_smem_bytes(Q, K)
+        lib.fused_postprocess_smem_bytes.argtypes = [ctypes.c_int]
+    smem = lib.fused_postprocess_smem_bytes(Q)
     if smem > 227 * 1024:
         raise ValueError(f"Q={Q}, K={K} need {smem} bytes of shared memory, over the 227 KB a block can use")
 

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ...ops import ms_deform_attn, position_embedding_sine, resize_hw
+from ...ops import ms_deform_attn_fused, position_embedding_sine, resize_hw
 from ..layers import Conv2dNorm, relu
 
 
@@ -55,7 +55,8 @@ def absolute_reference_points(spatial_shapes: Tuple[Tuple[int, int], ...], devic
 
 
 class MSDeformAttnModule(nn.Module):
-    """Deformable attention block: learned offsets/weights + the sampling op."""
+    """Deformable attention block: learned offsets/weights + the sampling op,
+    which takes the two Linear outputs raw (softmax and locations inside)."""
 
     def __init__(self, d_model: int = 256, n_levels: int = 3, n_heads: int = 8, n_points: int = 4):
         super().__init__()
@@ -65,22 +66,12 @@ class MSDeformAttnModule(nn.Module):
         self.value_proj = nn.Linear(d_model, d_model)
         self.output_proj = nn.Linear(d_model, d_model)
 
-    def sampling_inputs(self, query: torch.Tensor, ref_abs: torch.Tensor):
-        """(locations (B, N, M, L, P, 2) fp32 absolute, weights (B, N, M, L, P) fp32)."""
-        B, N, _ = query.shape
-        M, L, P = self.n_heads, self.n_levels, self.n_points
-        off = self.sampling_offsets(query).view(B, N, M, L, P, 2)
-        w = self.attention_weights(query).view(B, N, M, L * P)
-        w = torch.softmax(w, dim=-1).view(B, N, M, L, P).float()
-        loc = ref_abs.permute(1, 0, 2)[None, :, None, :, None, :] + off.float()
-        return loc, w
-
     def forward(self, query, ref_abs, value_src, spatial_shapes):
         B, N, C = query.shape
-        M = self.n_heads
-        value = self.value_proj(value_src).view(B, N, M, C // M)
-        loc, w = self.sampling_inputs(query, ref_abs)
-        out = ms_deform_attn(value, spatial_shapes, loc, w)
+        value = self.value_proj(value_src).view(B, N, self.n_heads, C // self.n_heads)
+        out = ms_deform_attn_fused(
+            value, spatial_shapes, self.sampling_offsets(query), self.attention_weights(query), ref_abs
+        )
         return self.output_proj(out)
 
 

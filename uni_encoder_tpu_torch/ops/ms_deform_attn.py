@@ -1,7 +1,9 @@
 """Multi-scale deformable-attention sampling (port of
-`uni_encoder_tpu/ops/ms_deform_attn.py`).
+`uni_encoder_tpu/ops/ms_deform_attn.py` and of the producer half of
+`MSDeformAttnModule` in `uni_encoder_tpu/models/pixel_decoders/msdeformattn.py`).
 
-Contract (the query-major form of the JAX `layout="cm_abs"` path):
+The sampling core, `ms_deform_attn_plain` (the query-major form of the JAX
+`layout="cm_abs"` path):
 
   value:              (B, S, M, D)        bf16 or fp32, S = sum(H_l * W_l)
   spatial_shapes:     static ((H_0, W_0), ...)
@@ -13,9 +15,19 @@ Contract (the query-major form of the JAX `layout="cm_abs"` path):
 Semantics are those of JAX `ms_deform_attn_corners`: bilinear, zero padding
 outside the map, fp32 accumulation, one rounding to the value dtype.
 
-`ms_deform_attn` runs the hand-written CUDA kernel
-(`kernels/csrc/ms_deform_attn.cu`) on CUDA tensors and the plain version,
-`ms_deform_attn_plain`, on CPU tensors.
+The fused op, `ms_deform_attn_fused`, takes the module's raw Linear outputs
+instead of locations and weights:
+
+  offsets:  (B, Lq, M * L * P * 2)  the sampling_offsets output, value dtype
+  logits:   (B, Lq, M * L * P)      the attention_weights output, value dtype
+  ref_abs:  (L, Lq, 2)              fp32 absolute reference points
+
+and computes `sampling_inputs` (softmax over each head's L * P logits,
+rounded to the logits' dtype as torch.softmax returns it, then
+`ref_abs + offset` in fp32) followed by the sampling core. On CUDA tensors
+it runs the hand-written kernel `kernels/csrc/ms_deform_attn.cu`
+(`ms_deform_attn_fused_cuda`); on CPU tensors its plain version,
+`ms_deform_attn_fused_plain`.
 """
 
 from __future__ import annotations
@@ -32,7 +44,7 @@ def ms_deform_attn_plain(
     sampling_locations: torch.Tensor,
     attention_weights: torch.Tensor,
 ) -> torch.Tensor:
-    """Plain PyTorch version: four corner gathers per level, summed in fp32."""
+    """Plain PyTorch sampling core: four corner gathers per level, summed in fp32."""
     B, S, M, D = value.shape
     _, Lq, _, L, P, _ = sampling_locations.shape
     if len(spatial_shapes) != L or sum(h * w for h, w in spatial_shapes) != S:
@@ -70,26 +82,57 @@ def ms_deform_attn_plain(
     return out.permute(0, 2, 1, 3).reshape(B, Lq, M * D).to(orig_dtype)
 
 
-def ms_deform_attn_cuda(
+def sampling_inputs(offsets: torch.Tensor, logits: torch.Tensor, ref_abs: torch.Tensor, n_heads: int):
+    """The plain producer: (locations (B, Lq, M, L, P, 2) fp32 absolute,
+    weights (B, Lq, M, L, P) fp32) from the raw Linear outputs."""
+    B, Lq, _ = offsets.shape
+    L = ref_abs.shape[0]
+    P = logits.shape[-1] // (n_heads * L)
+    off = offsets.view(B, Lq, n_heads, L, P, 2)
+    w = logits.view(B, Lq, n_heads, L * P)
+    w = torch.softmax(w, dim=-1).view(B, Lq, n_heads, L, P).float()
+    loc = ref_abs.permute(1, 0, 2)[None, :, None, :, None, :] + off.float()
+    return loc, w
+
+
+def ms_deform_attn_fused_plain(
     value: torch.Tensor,
     spatial_shapes: Sequence[Tuple[int, int]],
-    sampling_locations: torch.Tensor,
-    attention_weights: torch.Tensor,
+    offsets: torch.Tensor,
+    logits: torch.Tensor,
+    ref_abs: torch.Tensor,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel. Counts its launches in `.launches`."""
+    """Plain version of the fused kernel: `sampling_inputs`, then the core."""
+    loc, w = sampling_inputs(offsets, logits, ref_abs, value.shape[2])
+    return ms_deform_attn_plain(value, spatial_shapes, loc, w)
+
+
+def ms_deform_attn_fused_cuda(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    offsets: torch.Tensor,
+    logits: torch.Tensor,
+    ref_abs: torch.Tensor,
+) -> torch.Tensor:
+    """Launch the fused CUDA kernel. Counts its launches in `.launches`."""
+    if value.ndim != 4 or offsets.ndim != 3 or logits.ndim != 3 or ref_abs.ndim != 3:
+        raise ValueError("expected value (B, S, M, D), offsets and logits (B, Lq, .), ref_abs (L, Lq, 2)")
     B, S, M, D = value.shape
-    if sampling_locations.ndim != 6 or attention_weights.ndim != 5:
-        raise ValueError("expected locations (B, Lq, M, L, P, 2) and weights (B, Lq, M, L, P)")
-    Lq, L, P = sampling_locations.shape[1], sampling_locations.shape[3], sampling_locations.shape[4]
-    if tuple(sampling_locations.shape) != (B, Lq, M, L, P, 2):
-        raise ValueError(f"locations shape {tuple(sampling_locations.shape)} != {(B, Lq, M, L, P, 2)}")
-    if tuple(attention_weights.shape) != (B, Lq, M, L, P):
-        raise ValueError(f"weights shape {tuple(attention_weights.shape)} != {(B, Lq, M, L, P)}")
+    L, Lq = ref_abs.shape[0], ref_abs.shape[1]
+    P = logits.shape[-1] // max(M * L, 1)
+    if (L, P) != (3, 4):
+        raise ValueError(f"the kernel is built for 3 levels and 4 points, got L={L}, P={P}")
+    if D % 2:
+        raise ValueError(f"the kernel reads channel pairs: D must be even, got {D}")
+    if tuple(ref_abs.shape) != (L, Lq, 2):
+        raise ValueError(f"ref_abs shape {tuple(ref_abs.shape)} != {(L, Lq, 2)}")
+    if tuple(logits.shape) != (B, Lq, M * L * P):
+        raise ValueError(f"logits shape {tuple(logits.shape)} != {(B, Lq, M * L * P)}")
+    if tuple(offsets.shape) != (B, Lq, M * L * P * 2):
+        raise ValueError(f"offsets shape {tuple(offsets.shape)} != {(B, Lq, M * L * P * 2)}")
     if len(spatial_shapes) != L or sum(h * w for h, w in spatial_shapes) != S:
         raise ValueError(f"spatial_shapes {spatial_shapes} do not match value {tuple(value.shape)} / L={L}")
-    if not 1 <= L <= 8:
-        raise ValueError(f"the kernel takes 1..8 levels, got {L}")
-    for t, name in ((value, "value"), (sampling_locations, "locations"), (attention_weights, "weights")):
+    for t, name in ((value, "value"), (offsets, "offsets"), (logits, "logits"), (ref_abs, "ref_abs")):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor")
         if not t.is_contiguous():
@@ -98,15 +141,19 @@ def ms_deform_attn_cuda(
             raise ValueError(f"{name} is on {t.device}, value on {value.device}")
     if value.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"value must be bf16 or fp32, got {value.dtype}")
-    if sampling_locations.dtype != torch.float32 or attention_weights.dtype != torch.float32:
-        raise ValueError("locations and weights must be fp32")
+    if offsets.dtype != value.dtype or logits.dtype != value.dtype:
+        raise ValueError(f"offsets and logits must be {value.dtype} like value, got {offsets.dtype}, {logits.dtype}")
+    if ref_abs.dtype != torch.float32:
+        raise ValueError(f"ref_abs must be fp32, got {ref_abs.dtype}")
+    if max(value.numel(), offsets.numel(), B * Lq * M * D, B * Lq * M * 16) >= 2**31:
+        raise ValueError("the kernel indexes with 32-bit offsets; split the batch")
 
     from ..kernels import load
 
     lib = load("ms_deform_attn")
-    fn = lib.msda_forward
+    fn = lib.msda_fused_forward
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
             ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
@@ -115,25 +162,26 @@ def ms_deform_attn_cuda(
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(
-            value.data_ptr(), sampling_locations.data_ptr(), attention_weights.data_ptr(), out.data_ptr(),
+            value.data_ptr(), offsets.data_ptr(), logits.data_ptr(), ref_abs.data_ptr(), out.data_ptr(),
             B, S, M, D, Lq, L, P, shapes, int(value.dtype == torch.bfloat16), stream,
         )
     if rc != 0:
         raise RuntimeError(f"ms_deform_attn kernel launch failed: cudaError {rc}")
-    ms_deform_attn_cuda.launches += 1
+    ms_deform_attn_fused_cuda.launches += 1
     return out
 
 
-ms_deform_attn_cuda.launches = 0
+ms_deform_attn_fused_cuda.launches = 0
 
 
-def ms_deform_attn(
+def ms_deform_attn_fused(
     value: torch.Tensor,
     spatial_shapes: Sequence[Tuple[int, int]],
-    sampling_locations: torch.Tensor,
-    attention_weights: torch.Tensor,
+    offsets: torch.Tensor,
+    logits: torch.Tensor,
+    ref_abs: torch.Tensor,
 ) -> torch.Tensor:
-    """The CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    """The fused CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
     if value.is_cuda:
-        return ms_deform_attn_cuda(value, spatial_shapes, sampling_locations, attention_weights)
-    return ms_deform_attn_plain(value, spatial_shapes, sampling_locations, attention_weights)
+        return ms_deform_attn_fused_cuda(value, spatial_shapes, offsets, logits, ref_abs)
+    return ms_deform_attn_fused_plain(value, spatial_shapes, offsets, logits, ref_abs)
