@@ -135,6 +135,21 @@ def _prologue(mask_cls: torch.Tensor, object_mask_threshold: float) -> Tuple[tor
     return probs, scores_all, labels_all, keep
 
 
+def fused_postprocess_inputs(
+    mask_cls: torch.Tensor, mask_pred: torch.Tensor, object_mask_threshold: float
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """The per-query prologue: class probabilities, labels and keep flags,
+    and the four arguments `fused_postprocess_cuda` takes."""
+    probs, scores_all, labels_all, keep = _prologue(mask_cls, object_mask_threshold)
+    K = probs.shape[1] - 1
+    # dropped queries score exactly -1 (prob = sig * ks + off), as the
+    # unfused prob_masks = -1
+    ks = torch.where(keep, scores_all, torch.zeros_like(scores_all)).contiguous()
+    off = torch.where(keep, torch.zeros_like(scores_all), torch.full_like(scores_all, -1.0)).contiguous()
+    args = (mask_pred.to(torch.bfloat16).contiguous(), probs[:, :K].contiguous(), ks, off)
+    return probs, labels_all, keep, args
+
+
 def _instance_topk(probs: torch.Tensor, topk: int):
     K = probs.shape[1] - 1
     scores_per_image, topk_indices = topk_lowest_index_first(probs[:, :-1].reshape(-1), topk)
@@ -155,15 +170,8 @@ def fused_multitask_inference(
         return fused_multitask_inference_plain(
             mask_cls, mask_pred, thing_mask, object_mask_threshold, overlap_threshold, topk
         )
-    probs, scores_all, labels_all, keep = _prologue(mask_cls, object_mask_threshold)
-    K = probs.shape[1] - 1
-    # dropped queries score exactly -1 (prob = sig * ks + off), as the
-    # unfused prob_masks = -1
-    ks = torch.where(keep, scores_all, torch.zeros_like(scores_all)).contiguous()
-    off = torch.where(keep, torch.zeros_like(scores_all), torch.full_like(scores_all, -1.0)).contiguous()
-    r = fused_postprocess_cuda(
-        mask_pred.to(torch.bfloat16).contiguous(), probs[:, :K].contiguous(), ks, off
-    )
+    probs, labels_all, keep, args = fused_postprocess_inputs(mask_cls, mask_pred, object_mask_threshold)
+    r = fused_postprocess_cuda(*args)
 
     seg_id, isthing, new_segment, assigned = _panoptic_bookkeeping(
         labels_all, keep, r["win_area"], r["bin_area"], r["final_area"], thing_mask, overlap_threshold
