@@ -1,13 +1,15 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the hand-written
 CUDA kernels from this checkout, holds each against its plain PyTorch version
-at the main path's shapes, serves three full-width 1024x2048 segmentation
-requests through the port's entry points, and reports per-kernel times.
+at the main path's shapes, serves full-width 1024x2048 segmentation requests
+and 192x512 two-frame depth/motion requests through the port's entry points,
+and reports per-kernel times.
 
     python3 chip_smoke.py
 
 Phases, one JSON line each: device, build, k1_vs_plain, k1_class_chunks,
 k2_vs_plain, serve, stages, profile, kernels_on_served_tensors,
-reference_small. Then the card's name and power limit as
+reference_small, sequence, sequence_stages, frame, predictor,
+sequence_reference_small. Then the card's name and power limit as
 nvidia-smi reports them, the {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}. Any failure raises and the script exits
 non-zero without the last line. It needs a CUDA card and the repository's
@@ -36,11 +38,16 @@ FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
 
 SEG_H, SEG_W = 1024, 2048
+SEQ_H, SEQ_W = 192, 512  # the sequence request: a two-frame pair
 N_REQUESTS = 3  # served with the kernels' launch counts read
 N_TIMED = 10  # timed stage by stage
 N_PROFILED = 3  # under torch.profiler
+N_FRAMES = 10  # segmentation + sequence frames, timed
+N_SERVED = 2  # items of each kind through the Predictor and the serving pool
 STAGES = ("task_mlp", "backbone", "pixel_decoder", "predictor", "postprocess")
+SEQ_STAGES = ("backbone", "pose_decoder", "motion_decoder", "motion_mask", "depth_decoder")
 TASK = "The task is panoptic"
+THING_IDS = range(11, 19)  # Cityscapes things: person .. bicycle
 
 
 def emit(phase, **fields):
@@ -192,13 +199,68 @@ def bound_fields(nbytes, flops):
             "bytes": nbytes, "flops": flops}
 
 
+def reset_launches(*wrappers):
+    for w in wrappers:
+        w.launches = 0
+
+
+def profile_device(fn, n, untraced_ms):
+    """Device kernel time of one `fn()` from torch.profiler over `n` calls,
+    the busy share (traced, and against the untraced wall time
+    `untraced_ms`), launches per call and the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3 / n
+    on_device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel_ms = sum(e.self_device_time_total for e in on_device) / 1e3 / n
+    top = sorted(on_device, key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    return {"kernel_ms": kernel_ms, "traced_wall_ms": traced_ms, "busy_share_traced": kernel_ms / traced_ms,
+            "busy_share_untraced": kernel_ms / untraced_ms,
+            "kernel_launches": sum(e.count for e in on_device) / n,
+            "top_kernels_ms": {e.key[:90]: e.self_device_time_total / 1e3 / n for e in top}}
+
+
+def check_sequence_outputs(out, B, H, W):
+    """The sequence request's checks: shapes, finite values, disparity in
+    the TransDSSL bin range [0.01, 1], a motion probability, an SE(3) last
+    row."""
+    disp, mask = out["disp"].float(), out["motion_mask"].float()
+    flow, cam = out["complete_flow"].float(), out["cam_T_cam"].float()
+    last_row = torch.tensor([0.0, 0.0, 0.0, 1.0], device=cam.device).expand(B, 4)
+    return {
+        "disp_shape": tuple(disp.shape) == (B, H, W, 1),
+        "motion_mask_shape": tuple(mask.shape) == (B, H, W, 1),
+        "complete_flow_shape": tuple(flow.shape) == (B, H, W, 3),
+        "cam_T_cam_shape": tuple(cam.shape) == (B, 4, 4),
+        "finite": all(bool(torch.isfinite(x).all()) for x in (disp, mask, flow, cam)),
+        "disp_in_bins": bool((disp >= 0.01).all() and (disp <= 1.0).all()),
+        "motion_mask_in_0_1": bool((mask >= 0).all() and (mask <= 1).all()),
+        "cam_T_cam_last_row": bool(torch.equal(cam[:, 3], last_row)),
+    }
+
+
+def fail_unless(phase, checks):
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{phase} checks failed: {failed}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         sys.exit(2)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch.utils.flop_counter import FlopCounterMode
+
     from uni_encoder_tpu_torch import kernels
     from uni_encoder_tpu_torch.config import Config
+    from uni_encoder_tpu_torch.engine.predictor import Predictor
+    from uni_encoder_tpu_torch.engine.serving import AsyncBatchedPredictor, per_item
     from uni_encoder_tpu_torch.data.tokenizer import tokenize_task
     from uni_encoder_tpu_torch.inference.fused_postprocess import (
         fused_multitask_inference,
@@ -342,8 +404,7 @@ def main():
     torch.cuda.synchronize()
     warmup_ms = (time.perf_counter() - t0) * 1e3
 
-    fused_postprocess_cuda.launches = 0
-    ms_deform_attn_fused_cuda.launches = 0
+    reset_launches(fused_postprocess_cuda, ms_deform_attn_fused_cuda)
     request_ms = []
     for _ in range(N_REQUESTS):
         t0 = time.perf_counter()
@@ -403,25 +464,13 @@ def main():
     emit("stages", requests=N_TIMED, request_wall_ms=wall_ms, request_wall_ms_median=wall_median,
          stage_ms_median={s: float(np.median(v)) for s, v in stage_ms.items()}, card=smi)
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(N_PROFILED):
-            request()
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) * 1e3 / N_PROFILED
-    on_device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernel_ms = sum(e.self_device_time_total for e in on_device) / 1e3 / N_PROFILED
-    top = sorted(on_device, key=lambda e: e.self_device_time_total, reverse=True)[:12]
     # the profiler slows the host, not the card: the traced wall time is
     # longer than an untraced request, so the busy share is given both ways
-    emit("profile", requests=N_PROFILED, kernel_ms_per_request=kernel_ms,
-         traced_wall_ms_per_request=traced_ms, busy_share_traced=kernel_ms / traced_ms,
-         busy_share_untraced=kernel_ms / wall_median,
-         kernel_launches_per_request=sum(e.count for e in on_device) / N_PROFILED,
-         top_kernels_ms_per_request={e.key[:90]: e.self_device_time_total / 1e3 / N_PROFILED for e in top},
-         card=smi)
+    prof = profile_device(request, N_PROFILED, wall_median)
+    emit("profile", requests=N_PROFILED, kernel_ms_per_request=prof["kernel_ms"],
+         traced_wall_ms_per_request=prof["traced_wall_ms"], busy_share_traced=prof["busy_share_traced"],
+         busy_share_untraced=prof["busy_share_untraced"], kernel_launches_per_request=prof["kernel_launches"],
+         top_kernels_ms_per_request=prof["top_kernels_ms"], card=smi)
 
     # ------------------------- the kernels on the served request's own tensors
     pd = model.pixel_decoder
@@ -459,6 +508,183 @@ def main():
         errs[k] = (a - b).abs().max().item()
     emit("reference_small", image=[1, 128, 256, 3], dtype="float32", max_abs_err=errs,
          tolerance="atol 5e-3, rtol 1e-3")
+    del outs
+
+    # ------------------- the sequence request: a 192x512 two-frame pair, bf16
+    seq_rng = np.random.RandomState(0)
+    cur, prev = (torch.from_numpy(seq_rng.randn(1, SEQ_H, SEQ_W, 3).astype(np.float32)).to(dev, torch.bfloat16)
+                 for _ in range(2))
+
+    def seq_request():
+        return model.forward_sequence(cur, prev)
+
+    t0 = time.perf_counter()
+    seq_request()
+    torch.cuda.synchronize()
+    seq_warmup_ms = (time.perf_counter() - t0) * 1e3
+    reset_launches(fused_postprocess_cuda, ms_deform_attn_fused_cuda)
+    seq_ms = []
+    for _ in range(N_REQUESTS):
+        t0 = time.perf_counter()
+        seq_out = seq_request()
+        torch.cuda.synchronize()
+        seq_ms.append((time.perf_counter() - t0) * 1e3)
+    seq_launches = {"k1": fused_postprocess_cuda.launches, "k2": ms_deform_attn_fused_cuda.launches}
+    checks = check_sequence_outputs(seq_out, 1, SEQ_H, SEQ_W)
+    checks["no_k1_k2_launches"] = seq_launches == {"k1": 0, "k2": 0}
+    emit("sequence", requests=N_REQUESTS, image=[1, SEQ_H, SEQ_W, 3], dtype="bfloat16", request_ms=seq_ms,
+         warmup_ms=seq_warmup_ms, launches=seq_launches, checks=checks,
+         disp_range=[seq_out["disp"].min().item(), seq_out["disp"].max().item()],
+         cam_T_cam=seq_out["cam_T_cam"][0].float().tolist(), card=smi)
+    fail_unless("sequence", checks)
+
+    # operations of one request by stage (convolutions and matrix products;
+    # the two motion decoders share a class, so they count together), then
+    # the stages timed by CUDA events as each is entered, and at the end
+    with FlopCounterMode(display=False) as flops:
+        seq_request()
+    by_module = flops.get_flop_counts()
+    seq_gflop = {name: sum(by_module.get(cls, {}).values()) / 1e9 for name, cls in (
+        ("backbone_2b", "SwinTransformer"), ("pose_decoder", "ResNetLikePoseDecoder"),
+        ("motion_decoder_and_motion_mask", "MotionDecoderV2"), ("depth_decoder", "TransDSSL"),
+        ("depth_refinenet0", "TransDSSL.layers.refinenet0"), ("depth_output_conv", "TransDSSL.layers.output_conv"))}
+    seq_gflop["total"] = flops.get_total_flops() / 1e9
+    handles = [getattr(model, name).register_forward_pre_hook(mark) for name in SEQ_STAGES]
+    seq_stage_ms = {s: [] for s in SEQ_STAGES}
+    seq_wall_ms = []
+    for _ in range(N_TIMED):
+        marks.clear()
+        t0 = time.perf_counter()
+        seq_request()
+        mark()
+        torch.cuda.synchronize()
+        seq_wall_ms.append((time.perf_counter() - t0) * 1e3)
+        if len(marks) != len(SEQ_STAGES) + 1:
+            raise AssertionError(f"{len(marks)} stage marks in one sequence request, expected {len(SEQ_STAGES) + 1}")
+        for i, s in enumerate(SEQ_STAGES):
+            seq_stage_ms[s].append(marks[i].elapsed_time(marks[i + 1]))
+    for hd in handles:
+        hd.remove()
+    seq_wall_median = float(np.median(seq_wall_ms))
+    prof = profile_device(seq_request, N_PROFILED, seq_wall_median)
+    emit("sequence_stages", requests=N_TIMED, request_wall_ms=seq_wall_ms, request_wall_ms_median=seq_wall_median,
+         stage_ms_median={s: float(np.median(v)) for s, v in seq_stage_ms.items()},
+         gflop=seq_gflop, gflop_counts="torch.utils.flop_counter: convolutions and matrix products",
+         profiled_requests=N_PROFILED, kernel_ms_per_request=prof["kernel_ms"],
+         busy_share_traced=prof["busy_share_traced"], busy_share_untraced=prof["busy_share_untraced"],
+         kernel_launches_per_request=prof["kernel_launches"], top_kernels_ms_per_request=prof["top_kernels_ms"],
+         card=smi)
+
+    # --------------- bench.py's frame: one segmentation + one sequence request
+    def frame():
+        return request(), seq_request()
+
+    frame()
+    reset_launches(fused_postprocess_cuda, ms_deform_attn_fused_cuda)
+    frame_ms = []
+    for _ in range(N_FRAMES):
+        t0 = time.perf_counter()
+        frame()
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    frame_launches = {"k1": fused_postprocess_cuda.launches, "k2": ms_deform_attn_fused_cuda.launches}
+    frame_median = float(np.median(frame_ms))
+    prof = profile_device(frame, N_PROFILED, frame_median)
+    checks = {"k1_launches": frame_launches["k1"] == N_FRAMES,
+              "k2_launches": frame_launches["k2"] == N_FRAMES * cfg.sem_seg_head.transformer_enc_layers}
+    emit("frame", frames=N_FRAMES, frame_wall_ms=frame_ms, frame_wall_ms_median=frame_median,
+         frames_per_s=1e3 / frame_median, launches=frame_launches, checks=checks, profiled_frames=N_PROFILED,
+         kernel_ms_per_frame=prof["kernel_ms"], traced_wall_ms_per_frame=prof["traced_wall_ms"],
+         busy_share_traced=prof["busy_share_traced"], busy_share_untraced=prof["busy_share_untraced"],
+         kernel_launches_per_frame=prof["kernel_launches"], top_kernels_ms_per_frame=prof["top_kernels_ms"],
+         card=smi)
+    fail_unless("frame", checks)
+
+    # ---------------- the Predictor from uint8 images, through the serving pool
+    predictor = Predictor(Config(), model)
+    predictor.set_thing_ids(THING_IDS)
+    u8 = np.random.RandomState(2)
+    seg_items = [{"image": u8.randint(0, 256, (SEG_H, SEG_W, 3), np.uint8), "height": SEG_H, "width": SEG_W,
+                  "task_tokens": np.asarray(tokenize_task(TASK), np.int64), "index": i} for i in range(N_SERVED)]
+    seq_items = [{"image": u8.randint(0, 256, (SEQ_H, SEQ_W, 3), np.uint8),
+                  "prev_image": u8.randint(0, 256, (SEQ_H, SEQ_W, 3), np.uint8), "index": i}
+                 for i in range(N_SERVED)]
+
+    def serve_all(infer, items):
+        """Submit every item to a pool of batch size 1 and read the results
+        in submission order; each result carries its item's index. The pool
+        first serves the first item once untimed: its thread's first call
+        creates that thread's cuBLAS and cuDNN handles. Returns the results
+        and the time between consecutive results (ms)."""
+        pool = AsyncBatchedPredictor(per_item(lambda item: dict(infer(item), index=int(item["index"]))),
+                                     batch_size=1, device=dev)
+        try:
+            pool(items[0])
+            t0 = time.perf_counter()
+            futs = [pool.submit(it) for it in items]
+            results, done_ms = [], []
+            for f in futs:
+                results.append(f.result(timeout=300))
+                done_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            pool.shutdown()
+        return results, [b - a for a, b in zip([0.0] + done_ms, done_ms)]
+
+    seg_res, seg_item_ms = serve_all(predictor.infer_segmentation, seg_items)
+    seq_res, seq_item_ms = serve_all(predictor.infer_sequence, seq_items)
+    # one segmentation item traced: how much of it the device works
+    seg_prof = profile_device(lambda: predictor.infer_segmentation(seg_items[0]), 1, float(np.median(seg_item_ms)))
+    K = cfg.sem_seg_head.num_classes
+    checks = {"segmentation_order": [r["index"] for r in seg_res] == list(range(N_SERVED)),
+              "sequence_order": [r["index"] for r in seq_res] == list(range(N_SERVED))}
+    for i, r in enumerate(seg_res):
+        pan, infos = r["panoptic_seg"]
+        inst = r["instances"]
+        n = len(inst["scores"])
+        checks[f"segmentation_{i}"] = (
+            sorted(r) == ["index", "instances", "panoptic_seg", "sem_seg"]
+            and r["sem_seg"].dtype == np.float32 and r["sem_seg"].shape == (K, SEG_H, SEG_W)
+            and bool(np.isfinite(r["sem_seg"]).all())
+            and pan.dtype == np.int32 and pan.shape == (SEG_H, SEG_W)
+            and {s["id"] for s in infos} == set(np.unique(pan[pan > 0]).tolist())
+            and sorted(inst) == ["boxes", "labels", "masks", "query_indices", "scores"]
+            and inst["masks"].dtype == np.bool_ and inst["masks"].shape == (n, SEG_H, SEG_W)
+            and inst["boxes"].shape == (n, 4) and bool(np.isfinite(inst["scores"]).all())
+            and set(inst["labels"].tolist()) <= set(THING_IDS))
+    for i, r in enumerate(seq_res):
+        checks[f"sequence_{i}"] = (
+            sorted(r) == ["cam_T_cam", "complete_flow", "disp_results", "index", "motion_mask"]
+            and r["disp_results"].shape == (SEQ_H, SEQ_W) and r["motion_mask"].shape == (SEQ_H, SEQ_W)
+            and r["complete_flow"].shape == (SEQ_H, SEQ_W, 3) and r["cam_T_cam"].shape == (4, 4)
+            and all(r[k].dtype == np.float32 and bool(np.isfinite(r[k]).all())
+                    for k in ("disp_results", "motion_mask", "complete_flow", "cam_T_cam")))
+    emit("predictor", batch_size=1, segmentation_items=N_SERVED, sequence_items=N_SERVED,
+         segmentation_item_ms=seg_item_ms, sequence_item_ms=seq_item_ms,
+         segmentation_item_kernel_ms=seg_prof["kernel_ms"],
+         segmentation_item_busy_share_untraced=seg_prof["busy_share_untraced"],
+         segmentation_item_top_kernels_ms=seg_prof["top_kernels_ms"],
+         segments=[len(r["panoptic_seg"][1]) for r in seg_res],
+         instances=[len(r["instances"]["scores"]) for r in seg_res], checks=checks, card=smi)
+    fail_unless("predictor", checks)
+    del predictor, seg_res, seq_res
+    torch.cuda.empty_cache()
+
+    # ------ small sequence input: the GPU path against the port's CPU path, fp32
+    small_rng = np.random.RandomState(3)
+    small_pair = [torch.from_numpy(small_rng.randn(1, 96, 320, 3).astype(np.float32)) for _ in range(2)]
+    outs = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        m = UniEncoder(cfg, device=d, dtype=torch.float32, seed=0)
+        outs[name] = m.forward_sequence(*(x.to(d) for x in small_pair))
+        del m
+    errs = {}
+    for k in ("disp", "motion_mask", "complete_flow", "axisangle", "translation", "cam_T_cam"):
+        a, b = outs["cuda"][k].cpu(), outs["cpu"][k]
+        # fp32 with TF32 off; cuDNN sums in other orders than the CPU
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3)
+        errs[k] = (a - b).abs().max().item()
+    emit("sequence_reference_small", image=[1, 96, 320, 3], dtype="float32", max_abs_err=errs,
+         tolerance="atol 1e-4, rtol 1e-3")
 
     print(smi, flush=True)
     rows = []

@@ -4,7 +4,9 @@ The scaled profile of tests/test_whole_model_parity.py (every production
 component at narrow widths, 224x448 input), and one random d2-named state
 dict, made with numpy from a seed, that drives both packages: the JAX side
 through its checkpoint converter, the port through
-`load_state_dict(strict=True)`.
+`load_state_dict(strict=True)`. The motion decoders keep their fixed
+production widths (up to 1536 channels) at this profile, so a state dict
+holds about 93 M floats: build one per test module.
 """
 
 import dataclasses
@@ -26,6 +28,9 @@ DFF = 64
 NHEADS = 4
 H_IN, W_IN = 224, 448
 SEG_ATOL = 5e-3  # tests/test_whole_model_parity.py:52, rtol 1e-3
+SEQ_ATOL = 1e-5  # tests/test_whole_model_parity.py:52, rtol 1e-4
+# state-dict prefixes of the sequence path
+SEQUENCE_PREFIXES = ("sem_seg_head.depth_decoder.", "pose_decoder.", "motion_decoder.", "motion_mask.")
 
 
 def make_cfg(C):
@@ -44,28 +49,39 @@ def make_cfg(C):
 
 
 def random_d2_state(model: nn.Module, seed: int = 7):
-    """numpy fp32 values for every parameter of the port `model`, keyed by
-    its d2 names: fan-in-scaled matrices and kernels, norm scales near 1,
-    small everything else (keeps activations O(1) through the stack)."""
+    """numpy fp32 values for every parameter and BatchNorm statistic of the
+    port `model`, keyed by its d2 names: fan-in-scaled matrices and kernels,
+    norm scales near 1, running variances in [1, 1.3] or so, small
+    everything else (keeps activations O(1) through the stack). The
+    segmentation modules are drawn first, so their values do not depend on
+    the sequence modules."""
+    from uni_encoder_tpu_torch.models.layers import FrozenBatchNorm
+
     rng = np.random.RandomState(seed)
     state = {}
-    for mname, mod in model.named_modules():
+    modules = sorted(model.named_modules(), key=lambda nm: (nm[0] + ".").startswith(SEQUENCE_PREFIXES))
+    for mname, mod in modules:
         for pname, p in mod.named_parameters(recurse=False):
             key = f"{mname}.{pname}" if mname else pname
             shape = tuple(p.shape)
-            if isinstance(mod, (nn.LayerNorm, nn.GroupNorm)) and pname == "weight":
+            if isinstance(mod, (nn.LayerNorm, nn.GroupNorm, FrozenBatchNorm)) and pname == "weight":
                 arr = 1 + 0.1 * rng.randn(*shape)
             elif len(shape) >= 2 and pname.endswith("weight") and not isinstance(mod, nn.Embedding):
                 arr = rng.randn(*shape) / math.sqrt(math.prod(shape[1:]))
             else:
                 arr = 0.1 * rng.randn(*shape)
             state[key] = arr.astype(np.float32)
+        if isinstance(mod, FrozenBatchNorm):
+            n = mod.running_mean.shape[0]
+            state[f"{mname}.running_mean"] = (0.1 * rng.randn(n)).astype(np.float32)
+            state[f"{mname}.running_var"] = (1 + 0.1 * np.abs(rng.randn(n))).astype(np.float32)
     return state
 
 
-def jax_params(state):
-    """The JAX package's flax params for the same d2 state dict; every key
-    must be consumed (this also checks the port's module names)."""
+def jax_variables(state):
+    """The JAX package's flax {"params", "batch_stats"} for the same d2 state
+    dict; every key must be consumed (this also checks the port's module
+    names)."""
     from uni_encoder_tpu.engine import checkpoint as ckpt
 
     c = ckpt.Converter(state)
@@ -73,8 +89,12 @@ def jax_params(state):
     ckpt.convert_msdeform_pixel_decoder(c, layers=ENC_LAYERS)
     ckpt.convert_query_decoder(c, dec_layers=DEC_LAYERS - 1)
     ckpt.convert_task_mlp(c)
+    ckpt.convert_transdssl(c)
+    ckpt.convert_pose_decoder(c)
+    ckpt.convert_motion_decoder(c, "motion_decoder")
+    ckpt.convert_motion_decoder(c, "motion_mask")
     assert not c.unused, sorted(c.unused)[:8]
-    return c.params
+    return {"params": c.params, "batch_stats": c.batch_stats}
 
 
 def port_model(state=None):
@@ -86,6 +106,20 @@ def port_model(state=None):
     if state is not None:
         model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()}, strict=True)
     return model
+
+
+def model_pair(seed: int):
+    """The port model with a random d2 state dict loaded strictly, the JAX
+    model, the JAX variables of the same state, and the state. The class
+    head is scaled up so that queries clear the 0.8 keep threshold."""
+    from uni_encoder_tpu import config as JC
+    from uni_encoder_tpu.models.oneformer import UniEncoder as JUniEncoder
+
+    model = port_model()
+    state = random_d2_state(model, seed=seed)
+    state["sem_seg_head.predictor.class_embed.weight"] *= 8.0
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()}, strict=True)
+    return model, JUniEncoder(make_cfg(JC)), jax_variables(state), state
 
 
 def t(x):

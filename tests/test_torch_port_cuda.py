@@ -128,3 +128,22 @@ def test_fused_postprocess_kernel_matches_plain(cuda, Q, K, h, w):
     again = fused_multitask_inference(cls, masks, thing, **kw)
     for k in got:
         assert torch.equal(got[k], again[k]), k
+
+
+def test_forward_sequence_matches_cpu(cuda):
+    """forward_sequence in fp32 on the card (TF32 off) against the CPU path,
+    at the scaled profile of tests/_torch_port_common.py on a 64 x 128 pair,
+    from one seed's weights: atol 1e-4, rtol 1e-3 (cuDNN sums in other
+    orders than the CPU)."""
+    import _torch_port_common as common
+    from uni_encoder_tpu_torch import config as TC
+    from uni_encoder_tpu_torch.models.oneformer import UniEncoder
+
+    rng = np.random.RandomState(4)
+    pair = [torch.from_numpy(rng.randn(1, 64, 128, 3).astype(np.float32)) for _ in range(2)]
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = UniEncoder(common.make_cfg(TC), device=dev, seed=0)
+        outs[dev.type] = model.forward_sequence(*(x.to(dev) for x in pair))
+    for k in ("disp", "motion_mask", "complete_flow", "axisangle", "translation", "cam_T_cam"):
+        torch.testing.assert_close(outs["cuda"][k].cpu(), outs["cpu"][k], atol=1e-4, rtol=1e-3, msg=k)

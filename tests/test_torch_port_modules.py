@@ -34,7 +34,7 @@ def weights():
     model = common.port_model()
     state = common.random_d2_state(model)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()}, strict=True)
-    return model, common.jax_params(state)
+    return model, common.jax_variables(state)["params"]
 
 
 def test_position_embedding_sine_is_bit_identical():

@@ -3,8 +3,6 @@ tokenizer ids, the weight carry-across, the plain version of the fused
 post-process (K1) against the JAX kernel in interpret mode, and the whole
 forward_segmentation + post-process at the scaled profile."""
 
-import warnings
-
 import numpy as np
 import pytest
 
@@ -24,6 +22,13 @@ def one_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(scope="module")
+def slice_pair():
+    """Both packages on one random d2 state dict (class head scaled up)."""
+    torch.set_num_threads(1)
+    return common.model_pair(seed=7)
+
+
 @pytest.mark.parametrize("task", ["The task is panoptic", "The task is semantic", "The task is instance"])
 def test_tokenizer_ids_match_jax(task):
     from uni_encoder_tpu.data.tokenizer import tokenize_task as jtok
@@ -39,28 +44,34 @@ def test_tokenizer_known_ids():
     assert tokenize_task("The task is panoptic")[:8] == (49406, 518, 10549, 533, 1072, 24755, 49407, 0)
 
 
-def test_convert_round_trip():
-    """d2 state dict -> JAX Converter -> flax params -> state_dict_from_jax
-    gives back the original exactly, and loads strictly into the port. A
-    sequence-path subtree is skipped with a warning; a stray leaf raises."""
+@pytest.mark.parametrize("case", ["exact", "stray_predictor_leaf", "stray_sequence_leaf", "stray_batch_stat"])
+def test_convert_round_trip(slice_pair, case):
+    """d2 state dict -> JAX Converter -> flax params and batch_stats ->
+    state_dict_from_jax gives back the original exactly, sequence subtrees
+    and BatchNorm statistics included, and loads strictly into the port. A
+    stray leaf, in the segmentation or the sequence subtrees or in
+    batch_stats, raises."""
     from uni_encoder_tpu_torch.engine.convert import state_dict_from_jax
 
-    model = common.port_model()
-    state = common.random_d2_state(model, seed=3)
-    params = dict(common.jax_params(state))
-    params["pose_decoder"] = {"squeeze": {"kernel": np.zeros((1, 1, 2, 2), np.float32)}}
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        sd = state_dict_from_jax(params)
-    assert any("pose_decoder" in str(w.message) for w in caught)
-    assert sorted(sd) == sorted(state)
-    for k, v in state.items():
-        np.testing.assert_array_equal(sd[k].numpy(), v, err_msg=k)
-    model.load_state_dict(sd, strict=True)
-
-    params["predictor"] = dict(params["predictor"], stray={"kernel": np.zeros((2, 2), np.float32)})
-    with pytest.raises(KeyError):
-        state_dict_from_jax(params)
+    model, _, variables, state = slice_pair
+    params, stats = dict(variables["params"]), dict(variables["batch_stats"])
+    stray = {"kernel": np.zeros((2, 2), np.float32)}
+    if case == "exact":
+        sd = state_dict_from_jax(params, stats)
+        assert sorted(sd) == sorted(state)
+        assert any(k.endswith("running_var") for k in sd) and any(k.startswith("motion_mask.") for k in sd)
+        for k, v in state.items():
+            np.testing.assert_array_equal(sd[k].numpy(), v, err_msg=k)
+        model.load_state_dict(sd, strict=True)
+        return
+    if case == "stray_predictor_leaf":
+        params["predictor"] = dict(params["predictor"], stray=stray)
+    elif case == "stray_sequence_leaf":
+        params["motion_mask"] = dict(params["motion_mask"], stray=stray)
+    else:
+        stats["pose_decoder"] = dict(stats["pose_decoder"], stray={"mean": np.zeros(4, np.float32)})
+    with pytest.raises(KeyError, match="no place in the port"):
+        state_dict_from_jax(params, stats)
 
 
 def _blobby(seed, Q, K, h, w):
@@ -139,20 +150,6 @@ def test_uint8_guard():
         fused_multitask_inference(torch.zeros(256, 8), torch.zeros(256, 4, 4), torch.zeros(7, dtype=torch.bool))
 
 
-@pytest.fixture(scope="module")
-def slice_pair():
-    """Both packages on one random d2 state dict. The class head is scaled
-    up so that queries clear the 0.8 keep threshold."""
-    from uni_encoder_tpu import config as JC
-    from uni_encoder_tpu.models.oneformer import UniEncoder as JUniEncoder
-
-    torch.set_num_threads(1)
-    model = common.port_model()
-    state = common.random_d2_state(model, seed=7)
-    state["sem_seg_head.predictor.class_embed.weight"] *= 8.0
-    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()}, strict=True)
-    jmodel = JUniEncoder(common.make_cfg(JC))
-    return model, jmodel, {"params": common.jax_params(state)}
 
 
 def test_whole_slice_matches_jax(slice_pair):
@@ -168,7 +165,7 @@ def test_whole_slice_matches_jax(slice_pair):
     from uni_encoder_tpu_torch.data.tokenizer import tokenize_task
     from uni_encoder_tpu_torch.inference import fused_multitask_inference, segments_info_from_arrays
 
-    model, jmodel, variables = slice_pair
+    model, jmodel, variables, _ = slice_pair
     rng = np.random.RandomState(1)
     img = rng.randn(1, common.H_IN, common.W_IN, 3).astype(np.float32)
     tokens = np.asarray([tokenize_task("The task is panoptic")], np.int32)

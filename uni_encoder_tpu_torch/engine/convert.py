@@ -1,32 +1,30 @@
 """Carry weights across from the JAX package.
 
-`state_dict_from_jax` turns a JAX-package flax parameter tree (numpy or jax
-arrays) into this package's d2-named state dict: the inverse of the JAX
-checkpoint converter's rules (`uni_encoder_tpu/engine/checkpoint.py`:
-`convert_swin`, `convert_msdeform_pixel_decoder`, `convert_query_decoder`,
-`convert_task_mlp`). This module keeps its own copy of those tables:
+`state_dict_from_jax` turns a JAX-package flax parameter tree and its
+`batch_stats` (numpy or jax arrays) into this package's d2-named state dict:
+the inverse of the JAX checkpoint converter's rules
+(`uni_encoder_tpu/engine/checkpoint.py`: `convert_swin`,
+`convert_msdeform_pixel_decoder`, `convert_query_decoder`,
+`convert_task_mlp`, `convert_transdssl`, `convert_pose_decoder`,
+`convert_motion_decoder`). This module keeps its own copy of those tables:
 
   * Dense kernel (in, out)      -> `.weight` = kernel.T
   * Conv kernel HWIO            -> `.weight` OIHW
-  * LayerNorm/GroupNorm `scale` -> `.weight`
+  * LayerNorm/GroupNorm/BatchNorm `scale` -> `.weight`
+  * BatchNorm `batch_stats` `mean` / `var` -> `.running_mean` / `.running_var`
   * MHA `in_proj` / `out_proj_kernel` -> `in_proj_weight` / `out_proj.weight`, transposed
 
-Depths and layer counts are read off the tree. A leaf that no rule places
-raises, except under the sequence-path subtrees, which are not ported yet
-and are skipped with a warning.
+Depths and layer counts are read off the tree. A parameter or statistic
+that no rule places raises.
 """
 
 from __future__ import annotations
 
 import re
-import warnings
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
-
-# top-level subtrees of the sequence path (pose/motion/depth), not ported yet
-NOT_PORTED = ("depth_decoder", "pose_decoder", "motion_decoder", "motion_mask")
 
 Path = Tuple[str, ...]
 
@@ -38,14 +36,14 @@ _INVERSE = {
 
 
 class _Table:
-    """(d2 source key, flax path, layout kind) records, built with the same
-    rule vocabulary as the JAX converter."""
+    """(d2 source key, flax collection, flax path, layout kind) records,
+    built with the same rule vocabulary as the JAX converter."""
 
     def __init__(self):
-        self.records: List[Tuple[str, Path, str]] = []
+        self.records: List[Tuple[str, str, Path, str]] = []
 
-    def raw(self, src: str, dst: Path, kind: str = "ident"):
-        self.records.append((src, dst, kind))
+    def raw(self, src: str, dst: Path, kind: str = "ident", collection: str = "params"):
+        self.records.append((src, collection, dst, kind))
 
     def linear(self, src: str, dst: Path, bias: bool = True):
         self.raw(src + ".weight", dst + ("kernel",), "linear")
@@ -60,6 +58,11 @@ class _Table:
     def norm(self, src: str, dst: Path):
         self.raw(src + ".weight", dst + ("scale",))
         self.raw(src + ".bias", dst + ("bias",))
+
+    def bn(self, src: str, dst: Path):
+        self.norm(src, dst)
+        self.raw(src + ".running_mean", dst + ("mean",), collection="batch_stats")
+        self.raw(src + ".running_var", dst + ("var",), collection="batch_stats")
 
     def mha(self, src: str, dst: Path):
         self.raw(src + ".in_proj_weight", dst + ("in_proj",), "linear")
@@ -150,6 +153,54 @@ def _task_mlp(t: _Table) -> None:
         t.linear(f"task_mlp.layers.{i}", ("task_mlp", f"layers_{i}"))
 
 
+def _transdssl(t: _Table) -> None:
+    p = "sem_seg_head.depth_decoder.layers."
+    d = ("depth_decoder",)
+    for k in range(1, 5):
+        t.conv(p + f"layer{k}_rn", d + (f"layer{k}_rn",), bias=False)
+    for k in range(5):
+        src, dst = p + f"refinenet{k}.", d + (f"refinenet{k}",)
+        for unit in ("resConfUnit1", "resConfUnit2"):
+            t.conv(src + f"{unit}.conv1", dst + (unit, "conv1"))
+            t.conv(src + f"{unit}.conv2", dst + (unit, "conv2"))
+        t.conv(src + "en_atten", dst + ("en_atten",))
+        t.conv(src + "out_conv", dst + ("out_conv",))
+    for head in ("output_conv4", "output_conv3", "output_conv2", "output_conv"):
+        t.conv(p + head + ".0", d + (f"{head}_0",))
+        t.conv(p + head + ".1", d + (f"{head}_1",))
+
+
+def _residual_stage(t: _Table, src: str, dst: Path) -> None:
+    """Sequential(1x1 projection, two blocks): a block's `left.{0,1,3,4}`
+    are conv, BN, conv, BN, and `shortcut.{0,1}` conv, BN."""
+    t.conv(src + ".0", dst + ("proj",))
+    for j in range(2):
+        b, bd = f"{src}.{j + 1}.", dst + (f"block{j}",)
+        t.conv(b + "left.0", bd + ("conv1",), bias=False)
+        t.bn(b + "left.1", bd + ("bn1",))
+        t.conv(b + "left.3", bd + ("conv2",), bias=False)
+        t.bn(b + "left.4", bd + ("bn2",))
+        t.conv(b + "shortcut.0", bd + ("shortcut_conv",), bias=False)
+        t.bn(b + "shortcut.1", bd + ("shortcut_bn",))
+
+
+def _pose_decoder(t: _Table) -> None:
+    for k in range(1, 5):
+        _residual_stage(t, f"pose_decoder.layer{k}", ("pose_decoder", f"layer{k}"))
+    t.conv("pose_decoder.squeeze", ("pose_decoder", "squeeze"))
+    for i in range(3):
+        t.conv(f"pose_decoder.convs.pose_{i}", ("pose_decoder", f"pose_{i}"))
+
+
+def _motion_decoder(t: _Table, which: str) -> None:
+    _residual_stage(t, which + ".layer0", (which, "layer0"))
+    for s in range(6):
+        t.conv(f"{which}.conv{s}.0", (which, f"conv{s}_0"))
+        t.conv(f"{which}.conv{s}.1", (which, f"conv{s}_1"))
+        t.conv(f"{which}.squeeze{s}", (which, f"squeeze{s}"))
+    t.conv(which + ".res_trans_conv", (which, "res_trans_conv"))
+
+
 def _flatten(tree: Mapping, prefix: Path = ()) -> Dict[Path, np.ndarray]:
     out: Dict[Path, np.ndarray] = {}
     for k, v in tree.items():
@@ -184,28 +235,26 @@ def _tables_for(flat: Dict[Path, np.ndarray]) -> _Table:
                    class_dec_layers=_count(predictor, r"class_dec_(\d+)"),
                    mask_embed_layers=_count(mask_embed, r"layers_(\d+)"))
     _task_mlp(t)
+    _transdssl(t)
+    _pose_decoder(t)
+    _motion_decoder(t, "motion_decoder")
+    _motion_decoder(t, "motion_mask")
     return t
 
 
 def state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
-    """The JAX package's flax params as this package's d2-named state dict."""
-    flat = _flatten(params)
-    stats = _flatten(batch_stats or {})
-    skipped = sorted({p[0] for p in list(flat) + list(stats) if p[0] in NOT_PORTED})
-    flat = {p: v for p, v in flat.items() if p[0] not in NOT_PORTED}
-    stray_stats = sorted(p for p in stats if p[0] not in NOT_PORTED)
-    if stray_stats:
-        raise KeyError(f"batch_stats leaves with no place in the port: {stray_stats[:8]}")
-
+    """The JAX package's flax params and batch_stats as this package's
+    d2-named state dict."""
+    trees = {"params": _flatten(params), "batch_stats": _flatten(batch_stats or {})}
     out: Dict[str, torch.Tensor] = {}
-    placed = set()
-    for src, dst, kind in _tables_for(flat).records:
-        if dst in flat:
-            out[src] = torch.from_numpy(np.ascontiguousarray(_INVERSE[kind](flat[dst])))
-            placed.add(dst)
-    unplaced = sorted(set(flat) - placed)
-    if unplaced:
-        raise KeyError(f"{len(unplaced)} parameter leaves with no place in the port, e.g. {unplaced[:8]}")
-    if skipped:
-        warnings.warn(f"not ported yet, skipped: {', '.join(skipped)}")
+    placed = {name: set() for name in trees}
+    for src, collection, dst, kind in _tables_for(trees["params"]).records:
+        leaf = trees[collection].get(dst)
+        if leaf is not None:
+            out[src] = torch.from_numpy(np.ascontiguousarray(_INVERSE[kind](leaf)))
+            placed[collection].add(dst)
+    for name, flat in trees.items():
+        unplaced = sorted(set(flat) - placed[name])
+        if unplaced:
+            raise KeyError(f"{len(unplaced)} {name} leaves with no place in the port, e.g. {unplaced[:8]}")
     return out

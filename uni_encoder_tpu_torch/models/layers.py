@@ -5,7 +5,11 @@ reference checkpoint loads with `load_state_dict(strict=True)`:
 
   * `MultiheadAttention`: `in_proj_weight` (3E, E), `in_proj_bias`,
     `out_proj.{weight,bias}` (torch nn.MultiheadAttention packing);
-  * `MLP`: `layers.{i}.{weight,bias}`.
+  * `MLP`: `layers.{i}.{weight,bias}`;
+  * `FrozenBatchNorm`: `weight`, `bias`, `running_mean`, `running_var`.
+
+Convolutions of the sequence path take and give NHWC tensors
+(`Conv2dNHWC`), as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -20,6 +24,10 @@ from torch import nn
 
 def relu(x: torch.Tensor) -> torch.Tensor:
     return F.relu(x)
+
+
+def elu(x: torch.Tensor) -> torch.Tensor:
+    return F.elu(x)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -107,15 +115,51 @@ class Conv2dNorm(nn.Conv2d):
         return self.norm(super().forward(x))
 
 
+class Conv2dNHWC(nn.Conv2d):
+    """`nn.Conv2d` over NHWC tensors, with NHWC output.
+
+    The permute of a contiguous NHWC tensor is a channels-last NCHW tensor,
+    so cuDNN runs a channels-last convolution with no copy, and its
+    channels-last output permutes back to a contiguous NHWC tensor.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class FrozenBatchNorm(nn.Module):
+    """BatchNorm over the last axis of an NHWC tensor with stored statistics
+    (eval mode of the JAX package's `FrozenBatchNorm`, eps 1e-5):
+    `x * inv + (bias - mean * inv)` with `inv = rsqrt(var + eps) * weight`.
+
+    Like d2's `FrozenBatchNorm2d`, its state dict is exactly `weight`,
+    `bias`, `running_mean` and `running_var`: no `num_batches_tracked`,
+    which the JAX checkpoint reader drops.
+    """
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return x * inv + (self.bias - self.running_mean * inv)
+
+
 def random_init_(module: nn.Module, generator: torch.Generator) -> None:
-    """Fill every parameter from `generator` with fan-in-scaled values.
+    """Fill every parameter, and every BatchNorm statistic, from `generator`.
 
     Matrices and conv kernels get N(0, 1/fan_in), norm scales 1 + N(0, 0.01),
-    everything else (biases, embeddings, bias tables) N(0, 0.01). The
-    numbers are drawn on the CPU, so a seed gives the same weights on every
-    device.
+    everything else (biases, embeddings, bias tables) N(0, 0.01). BatchNorm
+    running means get N(0, 0.01) and running variances 1 + 0.1 |N(0, 1)|.
+    The numbers are drawn on the CPU, so a seed gives the same weights on
+    every device.
     """
-    norm_types = (nn.LayerNorm, nn.GroupNorm)
+    norm_types = (nn.LayerNorm, nn.GroupNorm, FrozenBatchNorm)
     with torch.no_grad():
         for mod in module.modules():
             for name, p in mod.named_parameters(recurse=False):
@@ -129,3 +173,9 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> None:
                 else:
                     val = 0.1 * noise
                 p.copy_(val.to(p.dtype))
+            if isinstance(mod, FrozenBatchNorm):
+                shape = tuple(mod.running_mean.shape)
+                mean = 0.1 * torch.randn(shape, generator=generator, dtype=torch.float32)
+                var = 1.0 + 0.1 * torch.randn(shape, generator=generator, dtype=torch.float32).abs()
+                mod.running_mean.copy_(mean.to(mod.running_mean.dtype))
+                mod.running_var.copy_(var.to(mod.running_var.dtype))
