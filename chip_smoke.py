@@ -2,25 +2,27 @@
 CUDA kernels from this checkout, holds each against its plain PyTorch version
 at the main path's shapes, serves full-width 1024x2048 segmentation requests
 and 192x512 two-frame depth/motion requests through the port's entry points,
-and reports per-kernel times.
+takes full-width training steps, and reports per-kernel times.
 
     python3 chip_smoke.py
 
 Phases, one JSON line each: device, build, k1_vs_plain, k1_class_chunks,
-k2_vs_plain, serve, stages, profile, kernels_on_served_tensors,
+k2_vs_plain, k3_vs_plain, serve, stages, profile, kernels_on_served_tensors,
 reference_small, sequence, sequence_stages, frame, predictor,
-sequence_reference_small. Then the card's name and power limit as
-nvidia-smi reports them, the {"kernels": [...]} line, and last
-{"ok": true, "device": {...}}. Any failure raises and the script exits
+sequence_reference_small, train, train_reference_small. Then the card's name
+and power limit as nvidia-smi reports them, the {"kernels": [...]} line, and
+last {"ok": true, "device": {...}}. Any failure raises and the script exits
 non-zero without the last line. It needs a CUDA card and the repository's
 `uni_encoder_tpu_torch` package beside it; it imports nothing of JAX.
+Served requests run under torch.inference_mode (`serve_segmentation`,
+`serve_sequence`), as a server holds it.
 
 Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of HBM, 67 TFLOP/s
 of fp32 outside the tensor cores and 495 TFLOP/s of TF32 on them (at the
 700 W power limit). K1 runs its semantic product on TF32 tensor cores, so
 its bound counts that product at the TF32 rate; the all-CUDA-core bound is
 reported beside it. The build phase reports ptxas's stack-frame bytes for
-each kernel (K2 must have none) and the HMMA count of K1's SASS.
+each kernel (K2 and K3 must have none) and the HMMA count of K1's SASS.
 """
 
 import json
@@ -48,6 +50,18 @@ STAGES = ("task_mlp", "backbone", "pixel_decoder", "predictor", "postprocess")
 SEQ_STAGES = ("backbone", "pose_decoder", "motion_decoder", "motion_mask", "depth_decoder")
 TASK = "The task is panoptic"
 THING_IDS = range(11, 19)  # Cityscapes things: person .. bicycle
+CLASS_NAMES = ("road", "sidewalk", "building", "wall", "fence", "pole", "traffic light", "traffic sign",
+               "vegetation", "terrain", "sky", "person", "rider", "car", "truck", "bus", "train", "motorcycle",
+               "bicycle")
+TRAIN_BATCH = 2  # per modality: the floor of train.py's batch (the default is 8)
+TRAIN_SLOTS, TRAIN_VALID = 100, 40  # padded target slots (train_mappers max_instances), instances per crop
+N_TRAIN_TIMED = 3  # training steps timed, after one warm-up; one more is profiled
+# parameters whose gradients train_reference_small compares, and whose
+# values the train phase checks for movement
+WATCHED = ("sem_seg_head.pixel_decoder.transformer.encoder.layers.0.self_attn.sampling_offsets.weight",
+           "sem_seg_head.pixel_decoder.transformer.encoder.layers.0.self_attn.value_proj.weight",
+           "backbone.layers.0.blocks.0.attn.qkv.weight", "motion_decoder.conv5.0.weight",
+           "sem_seg_head.predictor.class_embed.weight", "text_encoder.transformer.resblocks.0.attn.in_proj_weight")
 
 
 def emit(phase, **fields):
@@ -244,6 +258,74 @@ def check_sequence_outputs(out, B, H, W):
     }
 
 
+@torch.inference_mode()
+def serve_segmentation(model, images, tokens, thing):
+    """One segmentation request as a server makes it: forward_segmentation
+    and the fused post-process of each image, under inference_mode."""
+    from uni_encoder_tpu_torch.inference.fused_postprocess import fused_multitask_inference
+
+    out = model.forward_segmentation(images, tokens)
+    Q = out["pred_logits"].shape[1]
+    post = [fused_multitask_inference(out["pred_logits"][b], out["pred_masks"][b], thing,
+                                      object_mask_threshold=0.8, overlap_threshold=0.8, topk=Q)
+            for b in range(images.shape[0])]
+    return out, post
+
+
+@torch.inference_mode()
+def serve_sequence(model, cur, prev):
+    """One sequence request as a server makes it, under inference_mode."""
+    return model.forward_sequence(cur, prev)
+
+
+def train_batches(seed, B, seg_hw, seq_hw, slots, valid, n_texts, device):
+    """A synthetic balanced batch from `seed`: B segmentation crops with
+    `valid` of `slots` target slots filled by random discs at stride 4,
+    labels, and per-query texts ("a photo with a {class}" per target,
+    padded with the task prompt, as the segmentation train mapper builds
+    them); and B frame triples with pinhole intrinsics."""
+    from uni_encoder_tpu_torch.data.tokenizer import tokenize_task
+
+    rng = np.random.RandomState(seed)
+    H, W = seg_hw
+    h, w = H // 4, W // 4
+    labels = rng.randint(0, len(CLASS_NAMES), size=(B, slots))
+    yy, xx = np.mgrid[0:h, 0:w]
+    masks = np.zeros((B, slots, h, w), bool)
+    texts = np.zeros((B, n_texts, 77), np.int64)
+    for b in range(B):
+        prompts = [f"a {TASK.split()[-1]} photo"] * n_texts
+        for n in range(valid):
+            cy, cx, r = rng.randint(0, h), rng.randint(0, w), rng.uniform(3, h / 4)
+            masks[b, n] = (yy - cy) ** 2 + (xx - cx) ** 2 < r * r
+            if n < n_texts:
+                prompts[n] = f"a photo with a {CLASS_NAMES[labels[b, n]]}"
+        texts[b] = [tokenize_task(p) for p in prompts]
+    ok = np.zeros((B, slots), bool)
+    ok[:, :valid] = True
+    Hs, Ws = seq_hw
+    K = np.tile(np.eye(4, dtype=np.float32), (B, 1, 1))
+    K[:, 0, 0], K[:, 1, 1], K[:, 0, 2], K[:, 1, 2] = 0.58 * Ws, 1.92 * Hs, 0.5 * Ws, 0.5 * Hs
+    f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)  # noqa: E731
+    seg = {"images": f32(rng.randn(B, H, W, 3)),
+           "task_tokens": torch.tensor([tokenize_task(TASK)] * B, dtype=torch.int64, device=device),
+           "text_tokens": torch.from_numpy(texts).to(device), "labels": torch.from_numpy(labels).to(device),
+           "masks": torch.from_numpy(masks).to(device), "valid": torch.from_numpy(ok).to(device)}
+    seq = {k: f32(rng.randn(B, Hs, Ws, 3) * 0.5) for k in ("images", "prev_images", "next_images")}
+    seq["K"], seq["inv_K"] = f32(K), f32(np.linalg.inv(K))
+    return seg, seq
+
+
+def k3_bound(B, Lq, S, M, D, L, P):
+    """fp32: value, grad_out, offsets, logits and ref_abs read once; the
+    three gradients written once. Per sample: 4 corner dot products and 4
+    scaled adds over D channels, the corner weights and the softmax
+    backward."""
+    nbytes = (2 * B * S * M * D + B * Lq * M * D + 2 * B * Lq * M * L * P * 3) * 4 + L * Lq * 2 * 4
+    flops = B * Lq * M * L * P * (16 * D + 60)
+    return nbytes, flops
+
+
 def fail_unless(phase, checks):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -270,7 +352,13 @@ def main():
     )
     from uni_encoder_tpu_torch.models.oneformer import UniEncoder
     from uni_encoder_tpu_torch.models.pixel_decoders.msdeformattn import absolute_reference_points
-    from uni_encoder_tpu_torch.ops.ms_deform_attn import ms_deform_attn_fused_cuda, ms_deform_attn_fused_plain
+    from uni_encoder_tpu_torch.ops.ms_deform_attn import (
+        ms_deform_attn_fused_backward_cuda,
+        ms_deform_attn_fused_cuda,
+        ms_deform_attn_fused_plain,
+    )
+    from uni_encoder_tpu_torch.training.matcher import assign_on_host
+    from uni_encoder_tpu_torch.training.train_step import Trainer
 
     # ---------------------------------------------------------------- device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -291,12 +379,15 @@ def main():
         with open(kernels.build_log_path(name), errors="replace") as f:
             ptxas[name] = [l.strip() for l in f if "Used" in l or "spill" in l]
     k2_frames = ptxas_stack_frames(kernels.build_log_path("ms_deform_attn"), "msda_fused_kernel")
+    k3_frames = ptxas_stack_frames(kernels.build_log_path("ms_deform_attn_backward"), "msda_fused_backward_kernel")
     k1_frames = ptxas_stack_frames(kernels.build_log_path("fused_postprocess"), "fused_kernel")
     k1_hmma = sass_count(kernels.library_path("fused_postprocess"), "HMMA")
     emit("build", seconds=time.perf_counter() - t0, per_source=secs, ptxas=ptxas,
-         k2_stack_frame_bytes=k2_frames, k1_stack_frame_bytes=k1_frames, k1_sass_hmma=k1_hmma)
-    if not k2_frames or any(k2_frames):
-        raise AssertionError(f"K2 stack frames {k2_frames}: expected 0 bytes for every instantiation")
+         k2_stack_frame_bytes=k2_frames, k3_stack_frame_bytes=k3_frames, k1_stack_frame_bytes=k1_frames,
+         k1_sass_hmma=k1_hmma)
+    for name, frames in (("K2", k2_frames), ("K3", k3_frames)):
+        if not frames or any(frames):
+            raise AssertionError(f"{name} stack frames {frames}: expected 0 bytes for every instantiation")
     if k1_hmma == 0:
         raise AssertionError("K1's SASS holds no HMMA: the semantic product is not on tensor cores")
 
@@ -377,6 +468,40 @@ def main():
     del value, vb, off, ob, logits, lb
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------- K3 against its plain
+    # the training shapes: a 512x1024 crop's res5..res3, batch 2, fp32
+    TH, TW = Config().input.seg_crop_train
+    shapes = ((TH // 32, TW // 32), (TH // 16, TW // 16), (TH // 8, TW // 8))
+    B = TRAIN_BATCH
+    S = sum(a * b for a, b in shapes)
+    Lq = S
+    ref_abs = absolute_reference_points(shapes, dev)
+    value = torch.randn(B, S, M, D, generator=g).to(dev)
+    off, logits = msda_inputs(g, B, Lq, M, L, P, torch.float32, dev)
+    grad_out = torch.randn(B, Lq, M * D, generator=g).to(dev)
+    got = ms_deform_attn_fused_backward_cuda(value, shapes, off, logits, ref_abs, grad_out)
+    again = ms_deform_attn_fused_backward_cuda(value, shapes, off, logits, ref_abs, grad_out)
+    leaves = [x.clone().requires_grad_(True) for x in (value, off, logits)]
+    plain_out = ms_deform_attn_fused_plain(leaves[0], shapes, leaves[1], leaves[2], ref_abs)
+    ref = torch.autograd.grad(plain_out, leaves, grad_out, retain_graph=True)
+    k3_err = {}
+    for name, a, b in zip(("value", "offsets", "logits"), got, ref):
+        # fp32 sums of up to a few hundred products in another order (d value
+        # by atomics, in a run-dependent order): atol/rtol 1e-4
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4, msg=f"K3 grad {name}")
+        k3_err[name] = (a - b).abs().max().item()
+    k3_ms = cuda_ms(lambda: ms_deform_attn_fused_backward_cuda(value, shapes, off, logits, ref_abs, grad_out), 20)
+    k3_plain_ms = cuda_ms(lambda: torch.autograd.grad(plain_out, leaves, grad_out, retain_graph=True), 5)
+    emit("k3_vs_plain", shape={"B": B, "Lq": Lq, "S": S, "M": M, "D": D, "L": L, "P": P}, dtype="float32",
+         max_abs_err=k3_err, grad_value_rerun_max_abs_diff=(again[0] - got[0]).abs().max().item(),
+         ms=k3_ms, plain_ms=k3_plain_ms, plain="autograd backward of ms_deform_attn_fused_plain",
+         stack_frame_bytes=k3_frames, tolerance="atol/rtol 1e-4 (fp32 sums in another, run-dependent order)",
+         **bound_fields(*k3_bound(B, Lq, S, M, D, L, P)))
+    results["k3"] = dict(max_abs_err=max(k3_err.values()), ms=k3_ms, plain_ms=k3_plain_ms,
+                         stack_frame_bytes=max(k3_frames), **bound_fields(*k3_bound(B, Lq, S, M, D, L, P)))
+    del value, off, logits, grad_out, got, again, leaves, plain_out, ref
+    torch.cuda.empty_cache()
+
     # ------------------------------------------- serve three full-width requests
     cfg = Config().model
     t0 = time.perf_counter()
@@ -393,11 +518,7 @@ def main():
     thing = torch.isin(torch.arange(cfg.sem_seg_head.num_classes), torch.arange(11, 19)).to(dev)
 
     def request():
-        out = model.forward_segmentation(images, tokens)
-        post = [fused_multitask_inference(out["pred_logits"][b], out["pred_masks"][b], thing,
-                                          object_mask_threshold=0.8, overlap_threshold=0.8, topk=150)
-                for b in range(images.shape[0])]
-        return out, post
+        return serve_segmentation(model, images, tokens, thing)
 
     t0 = time.perf_counter()
     request()  # warm-up: cuBLAS/cuDNN handles, kernel libraries, allocator
@@ -474,7 +595,7 @@ def main():
 
     # ------------------------- the kernels on the served request's own tensors
     pd = model.pixel_decoder
-    with torch.no_grad():
+    with torch.inference_mode():
         src, pos, ref_abs, shapes = pd.encode(model.backbone(images))
         attn0 = pd.transformer.encoder.layers[0].self_attn
         value = attn0.value_proj(src).view(src.shape[0], src.shape[1], attn0.n_heads, -1)
@@ -498,7 +619,8 @@ def main():
         m = UniEncoder(cfg, device=d, dtype=torch.float32, seed=0)
         with torch.no_grad():
             m.predictor.class_embed.weight.mul_(8.0)
-        outs[name] = m.forward_segmentation(small.to(d), tokens.to(d))
+        with torch.inference_mode():
+            outs[name] = m.forward_segmentation(small.to(d), tokens.to(d))
         del m
     errs = {}
     for k in ("pred_logits", "pred_masks"):
@@ -516,7 +638,7 @@ def main():
                  for _ in range(2))
 
     def seq_request():
-        return model.forward_sequence(cur, prev)
+        return serve_sequence(model, cur, prev)
 
     t0 = time.perf_counter()
     seq_request()
@@ -675,7 +797,7 @@ def main():
     outs = {}
     for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
         m = UniEncoder(cfg, device=d, dtype=torch.float32, seed=0)
-        outs[name] = m.forward_sequence(*(x.to(d) for x in small_pair))
+        outs[name] = serve_sequence(m, *(x.to(d) for x in small_pair))
         del m
     errs = {}
     for k in ("disp", "motion_mask", "complete_flow", "axisangle", "translation", "cam_T_cam"):
@@ -685,14 +807,122 @@ def main():
         errs[k] = (a - b).abs().max().item()
     emit("sequence_reference_small", image=[1, 96, 320, 3], dtype="float32", max_abs_err=errs,
          tolerance="atol 1e-4, rtol 1e-3")
+    del model, outs
+    torch.cuda.empty_cache()
+
+    # --------------- training: Trainer at full width on a synthetic batch, fp32
+    train_cfg = Config()
+    n_texts = train_cfg.model.one_former.num_object_queries - train_cfg.model.text_encoder.n_ctx
+    trainer = Trainer(train_cfg, device=dev)
+    t0 = time.perf_counter()
+    state = trainer.init(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    seg_b, seq_b = train_batches(0, TRAIN_BATCH, train_cfg.input.seg_crop_train, train_cfg.input.depth_hw_train,
+                                 TRAIN_SLOTS, TRAIN_VALID, n_texts, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    named = dict(state.model.named_parameters())
+    watched0 = {n: named[n].detach().clone() for n in WATCHED}
+    stats0 = {n: b.clone() for n, b in state.model.named_buffers() if n.endswith(("running_mean", "running_var"))}
+
+    def train_step():
+        return trainer.train_step(state, seg_b, seq_b, gen)[1]
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train_step()  # warm-up: cuBLAS/cuDNN plans, the allocator
+    torch.cuda.synchronize()
+    train_warmup_ms = (time.perf_counter() - t0) * 1e3
+    reset_launches(fused_postprocess_cuda, ms_deform_attn_fused_cuda, ms_deform_attn_fused_backward_cuda)
+    copies0, assignments0 = assign_on_host.copies, assign_on_host.assignments
+    step_wall_ms, step_event_ms, step_metrics = [], [], []
+    for _ in range(N_TRAIN_TIMED):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        step_metrics.append(train_step())
+        end.record()
+        torch.cuda.synchronize()
+        step_wall_ms.append((time.perf_counter() - t0) * 1e3)
+        step_event_ms.append(start.elapsed_time(end))
+    train_launches = {"k1": fused_postprocess_cuda.launches, "k2": ms_deform_attn_fused_cuda.launches,
+                      "k3": ms_deform_attn_fused_backward_cuda.launches}
+    host_copies = assign_on_host.copies - copies0
+    assignments = assign_on_host.assignments - assignments0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_median = float(np.median(step_wall_ms))
+    prof = profile_device(train_step, 1, step_median)
+    enc_layers = train_cfg.model.sem_seg_head.transformer_enc_layers
+    losses = {k: [float(m[k]) for m in step_metrics] for k in step_metrics[0]}
+    checks = {
+        "losses_finite": all(np.isfinite(v).all() for v in losses.values()),
+        "params_moved": all(not torch.equal(named[n], watched0[n]) for n in WATCHED),
+        "bn_stats_changed": all(not torch.equal(b, stats0[n]) for n, b in state.model.named_buffers()
+                                if n in stats0),
+        "step_count": state.step == 1 + N_TRAIN_TIMED + 1 and state.opt.count == state.step,
+        "k1_launches": train_launches["k1"] == 0,
+        "k2_launches": train_launches["k2"] == N_TRAIN_TIMED * enc_layers,
+        "k3_launches": train_launches["k3"] == N_TRAIN_TIMED * enc_layers,
+        "one_host_copy_per_step": host_copies == N_TRAIN_TIMED,
+        "assignments": assignments == N_TRAIN_TIMED * TRAIN_BATCH * trainer.n_prediction_sets(),
+    }
+    emit("train", batch={"segmentation": [TRAIN_BATCH, *train_cfg.input.seg_crop_train, 3],
+                         "sequence": [TRAIN_BATCH, 3, *train_cfg.input.depth_hw_train, 3],
+                         "target_slots": TRAIN_SLOTS, "valid": TRAIN_VALID, "texts": n_texts},
+         dtype="float32", tf32=False, parameters=sum(p.numel() for p in named.values()), init_s=init_s,
+         warmup_ms=train_warmup_ms, steps_timed=N_TRAIN_TIMED, step_wall_ms=step_wall_ms,
+         step_event_ms=step_event_ms, step_wall_ms_median=step_median,
+         kernel_ms_per_step=prof["kernel_ms"], traced_wall_ms_per_step=prof["traced_wall_ms"],
+         busy_share_traced=prof["busy_share_traced"], busy_share_untraced=prof["busy_share_untraced"],
+         kernel_launches_per_step=prof["kernel_launches"], top_kernels_ms_per_step=prof["top_kernels_ms"],
+         launches=train_launches, matcher_host_copies=host_copies, matcher_assignments=assignments,
+         peak_memory_gb=peak_gb, steps_taken=state.step, losses=losses, checks=checks, card=smi)
+    fail_unless("train", checks)
+    del trainer, state, named, watched0, stats0, seg_b, seq_b, step_metrics
+    torch.cuda.empty_cache()
+
+    # ---- small input: one training step on the GPU against the CPU path, fp32
+    # with TF32 off, the same weights (seed 0) and the same draws
+    small = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        tr = Trainer(train_cfg, device=d)
+        st = tr.init(seed=0)
+        seg_s, seq_s = train_batches(1, TRAIN_BATCH, (128, 256), (64, 128), 20, 8, n_texts, d)
+        draws = tr.make_draws(torch.Generator().manual_seed(1), seg_s, seq_s, d)
+        _, m = tr.train_step(st, seg_s, seq_s, draws=draws)
+        params = dict(st.model.named_parameters())
+        small[name] = ({k: float(v) for k, v in m.items()}, {n: params[n].grad.cpu() for n in WATCHED})
+        del tr, st, params
+    loss_err, grad_err = {}, {}
+    for k, ref in small["cpu"][0].items():
+        got = small["cuda"][0][k]
+        # cuBLAS/cuDNN sum in other orders than the CPU: atol 1e-4, rtol 1e-3
+        if not abs(got - ref) <= 1e-4 + 1e-3 * abs(ref):
+            raise AssertionError(f"train_reference_small {k}: cuda {got} cpu {ref}")
+        loss_err[k] = abs(got - ref)
+    for n in WATCHED:
+        a, b = small["cuda"][1][n], small["cpu"][1][n]
+        grad_err[n] = ((a - b).norm() / b.norm()).item()
+        if not grad_err[n] < 1e-3:
+            raise AssertionError(f"train_reference_small grad {n}: relative error {grad_err[n]}")
+    emit("train_reference_small", segmentation=[TRAIN_BATCH, 128, 256, 3], sequence=[TRAIN_BATCH, 3, 64, 128, 3],
+         dtype="float32", loss_abs_err=loss_err, grad_relative_norm_err=grad_err,
+         tolerance="losses atol 1e-4 + rtol 1e-3; gradients |cuda - cpu| / |cpu| < 1e-3")
+    del small
 
     print(smi, flush=True)
     rows = []
+    # K1 and K2 launches are the served requests' (phase serve), K3's the
+    # timed training steps' (phase train)
+    launches["k3"] = train_launches["k3"]
     for key, name, source, replaces in (
         ("k1", "fused_multitask_inference", "uni_encoder_tpu_torch/kernels/csrc/fused_postprocess.cu",
          "uni_encoder_tpu/inference/fused_postprocess.py:61"),
         ("k2", "ms_deform_attn_fused", "uni_encoder_tpu_torch/kernels/csrc/ms_deform_attn.cu",
          "uni_encoder_tpu/ops/ms_deform_attn.py:73"),
+        ("k3", "ms_deform_attn_fused_backward", "uni_encoder_tpu_torch/kernels/csrc/ms_deform_attn_backward.cu",
+         "uni_encoder_tpu/training/train_step.py:340"),
     ):
         r = results[key]
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -70,7 +70,7 @@ def random_d2_state(model: nn.Module, seed: int = 7):
                 arr = rng.randn(*shape) / math.sqrt(math.prod(shape[1:]))
             else:
                 arr = 0.1 * rng.randn(*shape)
-            state[key] = arr.astype(np.float32)
+            state[key] = np.asarray(arr, np.float32)  # a 0-d parameter draws a float
         if isinstance(mod, FrozenBatchNorm):
             n = mod.running_mean.shape[0]
             state[f"{mname}.running_mean"] = (0.1 * rng.randn(n)).astype(np.float32)

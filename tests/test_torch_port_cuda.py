@@ -147,3 +147,64 @@ def test_forward_sequence_matches_cpu(cuda):
         outs[dev.type] = model.forward_sequence(*(x.to(dev) for x in pair))
     for k in ("disp", "motion_mask", "complete_flow", "axisangle", "translation", "cam_T_cam"):
         torch.testing.assert_close(outs["cuda"][k].cpu(), outs["cpu"][k], atol=1e-4, rtol=1e-3, msg=k)
+
+
+def _msda_grads(fn, value, off, logits, ref_abs, shapes, grad_out):
+    """(d value, d offsets, d logits) of <fn(...), grad_out>."""
+    leaves = [x.detach().clone().requires_grad_(True) for x in (value, off, logits)]
+    out = fn(leaves[0], shapes, leaves[1], leaves[2], ref_abs)
+    return torch.autograd.grad(out, leaves, grad_out)
+
+
+@pytest.mark.parametrize("D", [8, 32, 24])
+def test_ms_deform_attn_backward_kernel_matches_plain(cuda, D):
+    """The backward kernel against autograd of the plain fused version, fp32,
+    on the ragged levels ((6, 8), (3, 4), (2, 2)) with one offset in ten far
+    outside its map. atol/rtol 1e-4: each gradient is an fp32 sum of up to a
+    few hundred products, which the kernel takes in another order (and, for
+    d value, with atomics in a run-dependent order)."""
+    from uni_encoder_tpu_torch.ops.ms_deform_attn import (
+        ms_deform_attn_fused_backward_cuda,
+        ms_deform_attn_fused_plain,
+    )
+
+    shapes = ((6, 8), (3, 4), (2, 2))
+    value, off, logits, ref_abs = _msda_inputs(2, 4, D, 64, shapes, 2, cuda, torch.float32)
+    grad_out = torch.from_numpy(np.random.RandomState(3).randn(2, 64, 4 * D).astype(np.float32)).to(cuda)
+    n0 = ms_deform_attn_fused_backward_cuda.launches
+    got = ms_deform_attn_fused_backward_cuda(value, shapes, off, logits, ref_abs, grad_out)
+    assert ms_deform_attn_fused_backward_cuda.launches == n0 + 1
+    ref = _msda_grads(ms_deform_attn_fused_plain, value, off, logits, ref_abs, shapes, grad_out)
+    for name, a, b in zip(("value", "offsets", "logits"), got, ref):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4, msg=name)
+    with pytest.raises(ValueError):  # the backward kernel is fp32 only
+        ms_deform_attn_fused_backward_cuda(value.bfloat16(), shapes, off.bfloat16(), logits.bfloat16(), ref_abs,
+                                           grad_out)
+
+
+def test_ms_deform_attn_cuda_op_carries_grad_fn(cuda):
+    """On CUDA tensors the fused op is differentiable: its output has a
+    grad_fn, the backward runs the backward kernel once, and the gradients
+    match autograd of the plain version (atol/rtol 1e-4, as above); ref_abs
+    gets none."""
+    from uni_encoder_tpu_torch.ops.ms_deform_attn import (
+        ms_deform_attn_fused,
+        ms_deform_attn_fused_backward_cuda,
+        ms_deform_attn_fused_plain,
+    )
+
+    shapes = ((6, 8), (3, 4), (2, 2))
+    value, off, logits, ref_abs = _msda_inputs(1, 2, 32, 20, shapes, 4, cuda, torch.float32)
+    grad_out = torch.ones((1, 20, 64), device=cuda)
+    leaves = [x.clone().requires_grad_(True) for x in (value, off, logits)]
+    out = ms_deform_attn_fused(leaves[0], shapes, leaves[1], leaves[2], ref_abs)
+    assert out.grad_fn is not None
+    n0 = ms_deform_attn_fused_backward_cuda.launches
+    out.backward(grad_out)
+    assert ms_deform_attn_fused_backward_cuda.launches == n0 + 1
+    ref = _msda_grads(ms_deform_attn_fused_plain, value, off, logits, ref_abs, shapes, grad_out)
+    for leaf, b in zip(leaves, ref):
+        torch.testing.assert_close(leaf.grad, b, atol=1e-4, rtol=1e-4)
+    with torch.inference_mode():
+        assert ms_deform_attn_fused(value, shapes, off, logits, ref_abs).grad_fn is None

@@ -50,3 +50,17 @@ def test_source_scan_finds_no_jax_package_import():
         for pat in (jax_pkg, jax_lib):
             found += [f"{os.path.relpath(path, REPO)}: {m.group(0).strip()}" for m in pat.finditer(src)]
     assert not found, found
+
+
+def test_walk_covers_the_training_modules():
+    """The import check above walks the training slice's modules too (the
+    training package, the text encoder, the backward kernel's source)."""
+    import pkgutil
+
+    import uni_encoder_tpu_torch as port
+
+    names = {m.name for m in pkgutil.walk_packages(port.__path__, "uni_encoder_tpu_torch.")}
+    for mod in ("training.train_step", "training.criterion", "training.matcher", "training.monodepth",
+                "models.text_transformer", "ops.ms_deform_attn", "engine.convert"):
+        assert f"uni_encoder_tpu_torch.{mod}" in names, mod
+    assert os.path.exists(os.path.join(PORT, "kernels", "csrc", "ms_deform_attn_backward.cu"))

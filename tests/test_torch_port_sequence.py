@@ -182,7 +182,8 @@ def test_forward_sequence_matches_jax(pair):
     prev = (rng.randn(1, 128, 256, 3) * 0.5).astype(np.float32)
     ref = jax.jit(lambda v, a, b: jmodel.apply(v, a, b, method=J.forward_sequence))(
         variables, jnp.asarray(cur), jnp.asarray(prev))
-    got = model.forward_sequence(t(cur), t(prev))
+    with torch.inference_mode():  # as a serving caller holds it
+        got = model.forward_sequence(t(cur), t(prev))
     assert sorted(got) == sorted(ref)
     for k in ("disp", "motion_mask", "motion_prob", "complete_flow", "axisangle", "translation", "cam_T_cam"):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), err_msg=k, **SEQ)

@@ -171,7 +171,8 @@ def test_whole_slice_matches_jax(slice_pair):
     tokens = np.asarray([tokenize_task("The task is panoptic")], np.int32)
 
     jout = jax.jit(jmodel.apply)(variables, jnp.asarray(img), jnp.asarray(tokens))
-    pout = model.forward_segmentation(t(img), t(tokens))
+    with torch.inference_mode():  # as a serving caller holds it
+        pout = model.forward_segmentation(t(img), t(tokens))
     assert tuple(pout["pred_masks"].shape) == (1, common.NQ, common.H_IN // 4, common.W_IN // 4)
     np.testing.assert_allclose(pout["pred_logits"].numpy(), np.asarray(jout["pred_logits"]),
                                atol=common.SEG_ATOL, rtol=1e-3)

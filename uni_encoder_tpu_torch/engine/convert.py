@@ -6,7 +6,25 @@ the inverse of the JAX checkpoint converter's rules
 (`uni_encoder_tpu/engine/checkpoint.py`: `convert_swin`,
 `convert_msdeform_pixel_decoder`, `convert_query_decoder`,
 `convert_task_mlp`, `convert_transdssl`, `convert_pose_decoder`,
-`convert_motion_decoder`). This module keeps its own copy of those tables:
+`convert_motion_decoder`). This module keeps its own copy of those tables.
+
+The training state's `text_params` (the JAX trainer's `_TextEncoder`) have
+no rule in the JAX converter: the reference ships no text-encoder weights.
+The port names those modules after the reference OneFormer's attributes, and
+this module's `_text_encoder` records the table:
+
+  text_encoder/token_embedding/embedding  -> text_encoder.token_embedding.weight
+  text_encoder/positional_embedding       -> text_encoder.positional_embedding
+  text_encoder/resblock_{i}/{ln_1, attn, ln_2}
+                              -> text_encoder.transformer.resblocks.{i}.{ln_1, attn, ln_2}
+  text_encoder/resblock_{i}/{c_fc, c_proj}
+                              -> text_encoder.transformer.resblocks.{i}.mlp.{c_fc, c_proj}
+  text_encoder/ln_final                   -> text_encoder.ln_final
+  text_projector/proj/layers_{i}          -> text_projector.layers.{i}
+  prompt_ctx                              -> prompt_ctx.weight
+  logit_scale                             -> logit_scale
+
+Layouts:
 
   * Dense kernel (in, out)      -> `.weight` = kernel.T
   * Conv kernel HWIO            -> `.weight` OIHW
@@ -45,30 +63,30 @@ class _Table:
     def raw(self, src: str, dst: Path, kind: str = "ident", collection: str = "params"):
         self.records.append((src, collection, dst, kind))
 
-    def linear(self, src: str, dst: Path, bias: bool = True):
-        self.raw(src + ".weight", dst + ("kernel",), "linear")
+    def linear(self, src: str, dst: Path, bias: bool = True, collection: str = "params"):
+        self.raw(src + ".weight", dst + ("kernel",), "linear", collection)
         if bias:
-            self.raw(src + ".bias", dst + ("bias",))
+            self.raw(src + ".bias", dst + ("bias",), collection=collection)
 
     def conv(self, src: str, dst: Path, bias: bool = True):
         self.raw(src + ".weight", dst + ("kernel",), "conv")
         if bias:
             self.raw(src + ".bias", dst + ("bias",))
 
-    def norm(self, src: str, dst: Path):
-        self.raw(src + ".weight", dst + ("scale",))
-        self.raw(src + ".bias", dst + ("bias",))
+    def norm(self, src: str, dst: Path, collection: str = "params"):
+        self.raw(src + ".weight", dst + ("scale",), collection=collection)
+        self.raw(src + ".bias", dst + ("bias",), collection=collection)
 
     def bn(self, src: str, dst: Path):
         self.norm(src, dst)
         self.raw(src + ".running_mean", dst + ("mean",), collection="batch_stats")
         self.raw(src + ".running_var", dst + ("var",), collection="batch_stats")
 
-    def mha(self, src: str, dst: Path):
-        self.raw(src + ".in_proj_weight", dst + ("in_proj",), "linear")
-        self.raw(src + ".in_proj_bias", dst + ("in_proj_bias",))
-        self.raw(src + ".out_proj.weight", dst + ("out_proj_kernel",), "linear")
-        self.raw(src + ".out_proj.bias", dst + ("out_proj_bias",))
+    def mha(self, src: str, dst: Path, collection: str = "params"):
+        self.raw(src + ".in_proj_weight", dst + ("in_proj",), "linear", collection)
+        self.raw(src + ".in_proj_bias", dst + ("in_proj_bias",), collection=collection)
+        self.raw(src + ".out_proj.weight", dst + ("out_proj_kernel",), "linear", collection)
+        self.raw(src + ".out_proj.bias", dst + ("out_proj_bias",), collection=collection)
 
 
 def _swin(t: _Table, depths) -> None:
@@ -201,6 +219,24 @@ def _motion_decoder(t: _Table, which: str) -> None:
     t.conv(which + ".res_trans_conv", (which, "res_trans_conv"))
 
 
+def _text_encoder(t: _Table, layers: int, proj_layers: int) -> None:
+    c, d = "text_params", ("text_encoder",)
+    t.raw("text_encoder.token_embedding.weight", d + ("token_embedding", "embedding"), collection=c)
+    t.raw("text_encoder.positional_embedding", d + ("positional_embedding",), collection=c)
+    for i in range(layers):
+        src, dst = f"text_encoder.transformer.resblocks.{i}.", d + (f"resblock_{i}",)
+        t.norm(src + "ln_1", dst + ("ln_1",), collection=c)
+        t.mha(src + "attn", dst + ("attn",), collection=c)
+        t.norm(src + "ln_2", dst + ("ln_2",), collection=c)
+        t.linear(src + "mlp.c_fc", dst + ("c_fc",), collection=c)
+        t.linear(src + "mlp.c_proj", dst + ("c_proj",), collection=c)
+    t.norm("text_encoder.ln_final", d + ("ln_final",), collection=c)
+    for i in range(proj_layers):
+        t.linear(f"text_projector.layers.{i}", ("text_projector", "proj", f"layers_{i}"), collection=c)
+    t.raw("prompt_ctx.weight", ("prompt_ctx",), collection=c)
+    t.raw("logit_scale", ("logit_scale",), collection=c)
+
+
 def _flatten(tree: Mapping, prefix: Path = ()) -> Dict[Path, np.ndarray]:
     out: Dict[Path, np.ndarray] = {}
     for k, v in tree.items():
@@ -217,8 +253,8 @@ def _count(names, pattern: str) -> int:
     return max(found) + 1 if found else 0
 
 
-def _tables_for(flat: Dict[Path, np.ndarray]) -> _Table:
-    """The rule table sized from the depths and layer counts in the tree."""
+def _tables_for(flat: Dict[Path, np.ndarray], text: Optional[Dict[Path, np.ndarray]] = None) -> _Table:
+    """The rule table sized from the depths and layer counts in the trees."""
     names = {p[:2] for p in flat}
     backbone = [n for top, n in names if top == "backbone"]
     trunk = [p[2] for p in flat if p[:2] == ("pixel_decoder", "trunk")]
@@ -239,19 +275,34 @@ def _tables_for(flat: Dict[Path, np.ndarray]) -> _Table:
     _pose_decoder(t)
     _motion_decoder(t, "motion_decoder")
     _motion_decoder(t, "motion_mask")
+    if text:
+        _text_encoder(t, layers=_count([p[1] for p in text if p[0] == "text_encoder"], r"resblock_(\d+)"),
+                      proj_layers=_count([p[2] for p in text if p[:2] == ("text_projector", "proj")],
+                                         r"layers_(\d+)"))
     return t
 
 
-def state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
-    """The JAX package's flax params and batch_stats as this package's
-    d2-named state dict."""
-    trees = {"params": _flatten(params), "batch_stats": _flatten(batch_stats or {})}
+def param_paths(params: Mapping, text_params: Optional[Mapping] = None) -> Dict[str, Tuple[str, Path, str]]:
+    """d2 name -> (flax collection, flax path, layout kind) of every
+    trainable leaf of the given trees."""
+    trees = {"params": _flatten(params), "text_params": _flatten(text_params or {})}
+    return {src: (col, dst, kind) for src, col, dst, kind in _tables_for(trees["params"], trees["text_params"]).records
+            if dst in trees.get(col, {})}
+
+
+def state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None,
+                        text_params: Optional[Mapping] = None) -> Dict[str, torch.Tensor]:
+    """The JAX package's flax params and batch_stats, and the training
+    state's text_params, as this package's d2-named state dict (with
+    text_params, it loads strictly into a UniEncoder built with is_train)."""
+    trees = {"params": _flatten(params), "batch_stats": _flatten(batch_stats or {}),
+             "text_params": _flatten(text_params or {})}
     out: Dict[str, torch.Tensor] = {}
     placed = {name: set() for name in trees}
-    for src, collection, dst, kind in _tables_for(trees["params"]).records:
+    for src, collection, dst, kind in _tables_for(trees["params"], trees["text_params"]).records:
         leaf = trees[collection].get(dst)
         if leaf is not None:
-            out[src] = torch.from_numpy(np.ascontiguousarray(_INVERSE[kind](leaf)))
+            out[src] = torch.from_numpy(np.array(_INVERSE[kind](leaf), order="C"))  # a writable copy, 0-d kept
             placed[collection].add(dst)
     for name, flat in trees.items():
         unplaced = sorted(set(flat) - placed[name])

@@ -80,7 +80,7 @@ class Predictor:
         return (image.to(torch.float32) - self.mean) / self.std
 
     # ------------------------------------------------------------ segmentation
-    @torch.no_grad()
+    @torch.inference_mode()
     def infer_segmentation(self, item: Dict) -> Dict:
         """item: image (H, W, 3) uint8, task_tokens (77,) int, optional
         height / width of the output. Returns sem_seg (K, h, w) fp32,
@@ -125,7 +125,7 @@ class Predictor:
         return res
 
     # ---------------------------------------------------------------- sequence
-    @torch.no_grad()
+    @torch.inference_mode()
     def infer_sequence(self, item: Dict) -> Dict:
         """item: image and prev_image (H, W, 3) uint8. Returns disp_results
         and motion_mask (H, W), complete_flow (H, W, 3) and cam_T_cam (4, 4),

@@ -3,9 +3,11 @@
 Patch-embed 4x4 conv -> 4 stages of W-MSA/SW-MSA blocks with relative
 position bias, cyclic shift and pad/unpad to the window, patch-merging
 downsample; emits {res2: C, res3: 2C, res4: 4C, res5: 8C} with one LayerNorm
-per output. Feature maps are channels-last (B, H, W, C) throughout, as in the
-JAX copy: every op of a block except the patch-embed conv acts on the last
-dim.
+per output. In training, stochastic depth drops each block's two residual
+branches with rates on a linspace from 0 to `drop_path_rate` over all blocks;
+the caller draws the keep masks and passes them to `forward`. Feature maps
+are channels-last (B, H, W, C) throughout, as in the JAX copy: every op of a
+block except the patch-embed conv acts on the last dim.
 
 Parameter names follow the reference d2 state dict:
 `backbone.patch_embed.{proj,norm}`, `backbone.layers.{i}.blocks.{j}.{norm1,
@@ -17,14 +19,14 @@ mlp.fc2}`, `backbone.layers.{i}.downsample.{norm,reduction}`,
 from __future__ import annotations
 
 import functools
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..layers import gelu
+from ..layers import drop_path, gelu
 
 
 @functools.lru_cache(maxsize=32)
@@ -61,8 +63,11 @@ def _shift_attn_mask(hp: int, wp: int, window: int, shift: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=32)
 def _device_constant(fn, *args, device: torch.device) -> torch.Tensor:
-    """`fn(*args)` (a cached numpy constant) as a tensor kept on `device`."""
-    return torch.from_numpy(fn(*args)).to(device)
+    """`fn(*args)` (a cached numpy constant) as a tensor kept on `device`:
+    a normal tensor even when first asked for under inference_mode, so that
+    a training step may use it after a served request."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(fn(*args)).to(device)
 
 
 def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
@@ -128,16 +133,19 @@ class SwinMLP(nn.Module):
 
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window: int, shift: int, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True):
+                 qkv_bias: bool = True, drop_path_rate: float = 0.0):
         super().__init__()
         self.window = window
         self.shift = shift
+        self.drop_path_rate = drop_path_rate
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention(dim, window, num_heads, qkv_bias)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = SwinMLP(dim, int(dim * mlp_ratio))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`keep`: None, or (2, B) drop-path keep masks for the attention and
+        MLP branches."""
         B, H, W, C = x.shape
         ws = self.window
         pad_b = (ws - H % ws) % ws
@@ -161,8 +169,9 @@ class SwinBlock(nn.Module):
             x = torch.roll(x, shifts=(self.shift, self.shift), dims=(1, 2))
         if pad_b or pad_r:
             x = x[:, :H, :W]
-        x = shortcut + x
-        return x + self.mlp(self.norm2(x))
+        keep_attn, keep_mlp = (None, None) if keep is None else keep
+        x = shortcut + drop_path(x, self.drop_path_rate, keep_attn)
+        return x + drop_path(self.mlp(self.norm2(x)), self.drop_path_rate, keep_mlp)
 
 
 class PatchMerging(nn.Module):
@@ -184,10 +193,11 @@ class PatchMerging(nn.Module):
 
 class SwinStage(nn.Module):
     def __init__(self, dim: int, depth: int, num_heads: int, window: int, mlp_ratio: float,
-                 qkv_bias: bool, downsample: bool):
+                 qkv_bias: bool, downsample: bool, drop_path_rates: Sequence[float]):
         super().__init__()
         self.blocks = nn.ModuleList(
-            SwinBlock(dim, num_heads, window, 0 if j % 2 == 0 else window // 2, mlp_ratio, qkv_bias)
+            SwinBlock(dim, num_heads, window, 0 if j % 2 == 0 else window // 2, mlp_ratio, qkv_bias,
+                      drop_path_rates[j])
             for j in range(depth)
         )
         self.downsample = PatchMerging(dim) if downsample else None
@@ -206,7 +216,10 @@ class PatchEmbed(nn.Module):
 
 
 class SwinTransformer(nn.Module):
-    """Returns {"res2".."res5"} channels-last (B, H, W, C) feature maps."""
+    """Returns {"res2".."res5"} channels-last (B, H, W, C) feature maps.
+
+    `drop_path_rate` is the last block's stochastic-depth rate (training
+    only; `forward` applies it when given keep masks)."""
 
     def __init__(
         self,
@@ -217,13 +230,18 @@ class SwinTransformer(nn.Module):
         mlp_ratio: float = 4.0,
         qkv_bias: bool = True,
         patch_norm: bool = True,
+        drop_path_rate: float = 0.0,
     ):
         super().__init__()
         self.embed_dim = embed_dim
         self.patch_embed = PatchEmbed(embed_dim, patch_norm)
         n = len(depths)
+        # the per-block rates, a linspace over all blocks (reference swin.py)
+        self.drop_path_rates = [float(r) for r in np.linspace(0.0, drop_path_rate, sum(depths))]
+        first = np.cumsum((0,) + tuple(depths))
         self.layers = nn.ModuleList(
-            SwinStage(embed_dim * 2 ** i, depths[i], num_heads[i], window, mlp_ratio, qkv_bias, i < n - 1)
+            SwinStage(embed_dim * 2 ** i, depths[i], num_heads[i], window, mlp_ratio, qkv_bias, i < n - 1,
+                      self.drop_path_rates[first[i]:first[i + 1]])
             for i in range(n)
         )
         for i in range(n):
@@ -233,13 +251,17 @@ class SwinTransformer(nn.Module):
     def out_channels(self) -> Dict[str, int]:
         return {f"res{i + 2}": self.embed_dim * 2 ** i for i in range(len(self.layers))}
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        # x: (B, H, W, 3), H and W multiples of 32 (size_divisibility)
+    def forward(self, x: torch.Tensor, drop_masks: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """x: (B, H, W, 3), H and W multiples of 32 (size_divisibility).
+        drop_masks: None (no stochastic depth), or (sum(depths), 2, B) keep
+        masks of 0s and 1s, one per block and residual branch."""
         x = self.patch_embed(x)
         outs = {}
+        k = 0  # block index over all stages
         for i, stage in enumerate(self.layers):
             for blk in stage.blocks:
-                x = blk(x)
+                x = blk(x, None if drop_masks is None else drop_masks[k])
+                k += 1
             outs[f"res{i + 2}"] = getattr(self, f"norm{i}")(x)
             if stage.downsample is not None:
                 x = stage.downsample(x)

@@ -37,7 +37,7 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class MultiheadAttention(nn.Module):
-    """torch.nn.MultiheadAttention semantics, batch-first (B, L, E), inference.
+    """torch.nn.MultiheadAttention semantics, batch-first (B, L, E), no dropout.
 
     `attn_mask` may be a bool mask (Lq, Lk) or (B, 1|H, Lq, Lk) in which
     True = DISALLOWED (the JAX package's convention; note that
@@ -128,14 +128,23 @@ class Conv2dNHWC(nn.Conv2d):
 
 
 class FrozenBatchNorm(nn.Module):
-    """BatchNorm over the last axis of an NHWC tensor with stored statistics
-    (eval mode of the JAX package's `FrozenBatchNorm`, eps 1e-5):
-    `x * inv + (bias - mean * inv)` with `inv = rsqrt(var + eps) * weight`.
+    """BatchNorm over the last axis of an NHWC tensor, eps 1e-5 (the JAX
+    package's `FrozenBatchNorm`): `x * inv + (bias - mean * inv)` with
+    `inv = rsqrt(var + eps) * weight`.
+
+    In eval mode `mean` and `var` are the stored statistics. In train mode
+    (`module.train()`) they are the batch's, over every axis but the last:
+    the mean and `E[x^2] - mean^2`, with gradients through both; the stored
+    statistics then move by momentum 0.9 towards the batch mean and the
+    unbiased batch variance, in place, as the JAX copy's `batch_stats`
+    update does.
 
     Like d2's `FrozenBatchNorm2d`, its state dict is exactly `weight`,
     `bias`, `running_mean` and `running_var`: no `num_batches_tracked`,
     which the JAX checkpoint reader drops.
     """
+
+    momentum = 0.9
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -146,8 +155,30 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return x * inv + (self.bias - self.running_mean * inv)
+        if self.training:
+            axes = tuple(range(x.ndim - 1))
+            mean = x.mean(dim=axes)
+            var = (x * x).mean(dim=axes) - mean * mean
+            with torch.no_grad():
+                n = x.numel() // x.shape[-1]
+                unbiased = var * n / max(n - 1, 1)
+                self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
+                self.running_var.mul_(self.momentum).add_((1 - self.momentum) * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return x * inv + (self.bias - mean * inv)
+
+
+def drop_path(x: torch.Tensor, rate: float, keep_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Stochastic depth (timm DropPath, the JAX package's `drop_path`):
+    `x / (1 - rate) * keep_mask`, with `keep_mask` (B,) of 0s and 1s drawn by
+    the caller (Bernoulli with probability 1 - rate). Identity when the rate
+    is 0 or no mask is given."""
+    if keep_mask is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    return x / keep * keep_mask.to(x.dtype).reshape((x.shape[0],) + (1,) * (x.ndim - 1))
 
 
 def random_init_(module: nn.Module, generator: torch.Generator) -> None:

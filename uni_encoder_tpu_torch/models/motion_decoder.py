@@ -6,6 +6,7 @@ then refines it scale by scale, res5 to full resolution, with conv/squeeze
 residual stages over the concatenated two-frame features and the full-res
 RGB pair. out_dim=3 gives ("complete_flow", s) = 0.005 * out; out_dim=1
 gives ("motion_prob", s) = 0.005 * out and ("motion_mask", s), its sigmoid.
+BatchNorm (in `layer0`) follows the module's train/eval mode.
 The model holds two: `motion_decoder` (flow) and `motion_mask`.
 
 d2 keys: `layer0.*` (a residual stage with ELU blocks), `conv{s}.{0,1}`,
@@ -61,7 +62,8 @@ class MotionDecoderV2(nn.Module):
         features: Dict[str, torch.Tensor],  # concatenated two-frame res2..res5
         ego_motion: torch.Tensor,  # (B, 1, 1, 6) [translation || axisangle]
     ) -> Dict:
-        feat1 = interpolate(features["res2"], scale_factor=2, mode="bilinear", align_corners=False)
+        # the refined res2 branch passes no gradient back into the backbone
+        feat1 = interpolate(features["res2"].detach(), scale_factor=2, mode="bilinear", align_corners=False)
         feat1 = self.layer0(feat1)
         # a 1x1 seed, resized to res5 by the first stage
         res_trans = self.res_trans_conv(100.0 * ego_motion)

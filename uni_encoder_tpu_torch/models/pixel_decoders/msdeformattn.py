@@ -48,10 +48,13 @@ def absolute_reference_points(spatial_shapes: Tuple[Tuple[int, int], ...], devic
     center on every level: the grid_sample map folded into a constant, so the
     sampling location is `ref_abs + offset` (the reference's offset / (W, H)
     normalisation and the sampler's * (W, H) rescale cancel exactly). Kept
-    on the device; callers must not modify it in place."""
-    ref = torch.from_numpy(_reference_points(spatial_shapes)).to(device)  # (N, 2)
-    wh = torch.tensor([[w, h] for (h, w) in spatial_shapes], dtype=torch.float32, device=device)
-    return ref[None] * wh[:, None, :] - 0.5
+    on the device; callers must not modify it in place. A normal tensor even
+    when first asked for under inference_mode, so that a training step may
+    use it after a served request."""
+    with torch.inference_mode(False):
+        ref = torch.from_numpy(_reference_points(spatial_shapes)).to(device)  # (N, 2)
+        wh = torch.tensor([[w, h] for (h, w) in spatial_shapes], dtype=torch.float32, device=device)
+        return ref[None] * wh[:, None, :] - 0.5
 
 
 class MSDeformAttnModule(nn.Module):

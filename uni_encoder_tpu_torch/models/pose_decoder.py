@@ -4,7 +4,8 @@
 Progressive fusion of the two-frame res2..res5 features into stages of
 64/128/256/512 channels, squeeze to 256, three pose convs, a global mean and
 0.01-scaled (axisangle, translation) for 2 frames. BatchNorm uses its stored
-statistics (inference).
+statistics in eval mode and the batch's in train mode (the JAX copy's
+`train_bn`), updating the stored ones.
 
 d2 keys: `layer{1..4}.0` (1x1 projection), `layer{k}.{1,2}` (residual
 blocks: `left.{0,1,3,4}` = conv, BN, conv, BN and, only where the stride is

@@ -1,5 +1,5 @@
 """Task-conditioned multi-scale masked query decoder (port of
-`uni_encoder_tpu/models/transformer_decoder.py`, inference branch).
+`uni_encoder_tpu/models/transformer_decoder.py`).
 
   * Q queries; the last is the task token; the other Q-1 are seeded by a
     2-layer DETR decoder ("class transformer") whose memory is the sine PE of
@@ -11,7 +11,10 @@
     mask features pre-resized to that level (bilinear resize and the mask
     product commute), thresholded at sigmoid < 0.5, with fully masked rows
     un-masked.
-  * Only the last round's predictions are kept.
+  * Serving keeps only the last round's predictions. With `is_train`, the
+    predictions after the seed and after every round are all made (deep
+    supervision): `aux_outputs` holds all but the last, and
+    `contrastive_logits` the seeded queries (B, Q, C).
 
 Parameter names follow the reference d2 state dict under
 `sem_seg_head.predictor.`.
@@ -106,9 +109,11 @@ class OneFormerQueryDecoder(nn.Module):
         mask_dim: int = 256,
         num_feature_levels: int = 3,
         use_task_norm: bool = True,
+        is_train: bool = False,
     ):
         super().__init__()
         C = hidden_dim
+        self.is_train = is_train
         self.hidden_dim = C
         self.num_queries = num_queries
         self.num_feature_levels = num_feature_levels
@@ -168,6 +173,7 @@ class OneFormerQueryDecoder(nn.Module):
         out_t = self.class_transformer.decoder.norm(tgt)
 
         output = torch.cat([out_t, tasks], dim=1)  # (B, Q, C)
+        initial_queries = output  # the contrastive features are the seeded queries
         query_pos = query_embed[None].expand(B, -1, -1)
 
         mask_feats_at_level = [
@@ -183,7 +189,14 @@ class OneFormerQueryDecoder(nn.Module):
             masked = masked & ~masked.all(dim=-1, keepdim=True)  # un-mask fully masked rows
             return masked[:, None], emb
 
+        def predict(output, emb):
+            return (self.class_embed(self.decoder_norm(output)),
+                    torch.matmul(emb, mask_feats_full).view(B, Q, mh, mw))  # (B, Q, H4, W4)
+
+        predictions = []
         attn_mask, emb = attn_mask_for(output, 0)
+        if self.is_train:
+            predictions.append(predict(output, emb))
         n_rounds = len(self.transformer_cross_attention_layers)
         for i in range(n_rounds):
             lvl = i % L
@@ -191,8 +204,12 @@ class OneFormerQueryDecoder(nn.Module):
             output = self.transformer_self_attention_layers[i](output, query_pos)
             output = self.transformer_ffn_layers[i](output)
             attn_mask, emb = attn_mask_for(output, (i + 1) % L)
+            if self.is_train:
+                predictions.append(predict(output, emb))
 
-        return {
-            "pred_logits": self.class_embed(self.decoder_norm(output)),
-            "pred_masks": torch.matmul(emb, mask_feats_full).view(B, Q, mh, mw),  # (B, Q, H4, W4)
-        }
+        logits, masks = predictions[-1] if self.is_train else predict(output, emb)
+        out = {"pred_logits": logits, "pred_masks": masks}
+        if self.is_train:
+            out["aux_outputs"] = [{"pred_logits": c, "pred_masks": m} for c, m in predictions[:-1]]
+            out["contrastive_logits"] = initial_queries
+        return out

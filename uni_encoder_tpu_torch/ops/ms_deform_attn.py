@@ -26,8 +26,12 @@ and computes `sampling_inputs` (softmax over each head's L * P logits,
 rounded to the logits' dtype as torch.softmax returns it, then
 `ref_abs + offset` in fp32) followed by the sampling core. On CUDA tensors
 it runs the hand-written kernel `kernels/csrc/ms_deform_attn.cu`
-(`ms_deform_attn_fused_cuda`); on CPU tensors its plain version,
-`ms_deform_attn_fused_plain`.
+(`ms_deform_attn_fused_cuda`) inside a `torch.autograd.Function` whose
+backward is the hand-written kernel `kernels/csrc/ms_deform_attn_backward.cu`
+(`ms_deform_attn_fused_backward_cuda`, fp32): gradients for value, offsets
+and logits; `ref_abs`, a constant of the shapes, gets none. On CPU tensors it
+runs the plain version, `ms_deform_attn_fused_plain`, which autograd
+differentiates; that is also the backward kernel's reference.
 """
 
 from __future__ import annotations
@@ -107,14 +111,8 @@ def ms_deform_attn_fused_plain(
     return ms_deform_attn_plain(value, spatial_shapes, loc, w)
 
 
-def ms_deform_attn_fused_cuda(
-    value: torch.Tensor,
-    spatial_shapes: Sequence[Tuple[int, int]],
-    offsets: torch.Tensor,
-    logits: torch.Tensor,
-    ref_abs: torch.Tensor,
-) -> torch.Tensor:
-    """Launch the fused CUDA kernel. Counts its launches in `.launches`."""
+def _check_fused_args(value, spatial_shapes, offsets, logits, ref_abs):
+    """Raise on what the fused kernels do not take; return (B, S, M, D, Lq, L, P)."""
     if value.ndim != 4 or offsets.ndim != 3 or logits.ndim != 3 or ref_abs.ndim != 3:
         raise ValueError("expected value (B, S, M, D), offsets and logits (B, Lq, .), ref_abs (L, Lq, 2)")
     B, S, M, D = value.shape
@@ -147,6 +145,22 @@ def ms_deform_attn_fused_cuda(
         raise ValueError(f"ref_abs must be fp32, got {ref_abs.dtype}")
     if max(value.numel(), offsets.numel(), B * Lq * M * D, B * Lq * M * 16) >= 2**31:
         raise ValueError("the kernel indexes with 32-bit offsets; split the batch")
+    return B, S, M, D, Lq, L, P
+
+
+def _shapes_arg(spatial_shapes):
+    return (ctypes.c_int * (2 * len(spatial_shapes)))(*[int(v) for hw in spatial_shapes for v in hw])
+
+
+def ms_deform_attn_fused_cuda(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    offsets: torch.Tensor,
+    logits: torch.Tensor,
+    ref_abs: torch.Tensor,
+) -> torch.Tensor:
+    """Launch the fused CUDA kernel. Counts its launches in `.launches`."""
+    B, S, M, D, Lq, L, P = _check_fused_args(value, spatial_shapes, offsets, logits, ref_abs)
 
     from ..kernels import load
 
@@ -158,12 +172,11 @@ def ms_deform_attn_fused_cuda(
         ]
         fn.restype = ctypes.c_int
     out = torch.empty((B, Lq, M * D), dtype=value.dtype, device=value.device)
-    shapes = (ctypes.c_int * (2 * L))(*[int(v) for hw in spatial_shapes for v in hw])
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(
             value.data_ptr(), offsets.data_ptr(), logits.data_ptr(), ref_abs.data_ptr(), out.data_ptr(),
-            B, S, M, D, Lq, L, P, shapes, int(value.dtype == torch.bfloat16), stream,
+            B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes), int(value.dtype == torch.bfloat16), stream,
         )
     if rc != 0:
         raise RuntimeError(f"ms_deform_attn kernel launch failed: cudaError {rc}")
@@ -174,6 +187,70 @@ def ms_deform_attn_fused_cuda(
 ms_deform_attn_fused_cuda.launches = 0
 
 
+def ms_deform_attn_fused_backward_cuda(
+    value: torch.Tensor,
+    spatial_shapes: Sequence[Tuple[int, int]],
+    offsets: torch.Tensor,
+    logits: torch.Tensor,
+    ref_abs: torch.Tensor,
+    grad_out: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward CUDA kernel: (grad_value, grad_offsets,
+    grad_logits) of the fused op for `grad_out` (B, Lq, M * D), all fp32.
+    grad_value is summed with atomics, in a run-dependent order. Counts its
+    launches in `.launches`."""
+    B, S, M, D, Lq, L, P = _check_fused_args(value, spatial_shapes, offsets, logits, ref_abs)
+    if value.dtype != torch.float32:
+        raise ValueError(f"the backward kernel is built for fp32, the training dtype; got {value.dtype}")
+    if tuple(grad_out.shape) != (B, Lq, M * D) or grad_out.dtype != torch.float32:
+        raise ValueError(f"grad_out must be fp32 {(B, Lq, M * D)}, got {grad_out.dtype} {tuple(grad_out.shape)}")
+    if grad_out.device != value.device or not grad_out.is_contiguous():
+        raise ValueError(f"grad_out must be contiguous on {value.device}")
+
+    from ..kernels import load
+
+    lib = load("ms_deform_attn_backward")
+    fn = lib.msda_fused_backward
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    grad_value = torch.zeros_like(value)
+    grad_offsets = torch.empty_like(offsets)
+    grad_logits = torch.empty_like(logits)
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(
+            value.data_ptr(), offsets.data_ptr(), logits.data_ptr(), ref_abs.data_ptr(), grad_out.data_ptr(),
+            grad_value.data_ptr(), grad_offsets.data_ptr(), grad_logits.data_ptr(),
+            B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"ms_deform_attn backward kernel launch failed: cudaError {rc}")
+    ms_deform_attn_fused_backward_cuda.launches += 1
+    return grad_value, grad_offsets, grad_logits
+
+
+ms_deform_attn_fused_backward_cuda.launches = 0
+
+
+class _FusedCuda(torch.autograd.Function):
+    """The forward kernel, with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, value, offsets, logits, ref_abs, spatial_shapes):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, offsets, logits, ref_abs)
+        return ms_deform_attn_fused_cuda(value, spatial_shapes, offsets, logits, ref_abs)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, offsets, logits, ref_abs = ctx.saved_tensors
+        grads = ms_deform_attn_fused_backward_cuda(
+            value, ctx.spatial_shapes, offsets, logits, ref_abs, grad_out.contiguous()
+        )
+        return grads + (None, None)
+
+
 def ms_deform_attn_fused(
     value: torch.Tensor,
     spatial_shapes: Sequence[Tuple[int, int]],
@@ -181,7 +258,8 @@ def ms_deform_attn_fused(
     logits: torch.Tensor,
     ref_abs: torch.Tensor,
 ) -> torch.Tensor:
-    """The fused CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    """The fused CUDA kernels (forward, and backward under autograd) for CUDA
+    tensors, the plain version for CPU tensors."""
     if value.is_cuda:
-        return ms_deform_attn_fused_cuda(value, spatial_shapes, offsets, logits, ref_abs)
+        return _FusedCuda.apply(value, offsets, logits, ref_abs, tuple(spatial_shapes))
     return ms_deform_attn_fused_plain(value, spatial_shapes, offsets, logits, ref_abs)

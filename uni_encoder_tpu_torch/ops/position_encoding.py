@@ -44,7 +44,10 @@ def _cached(h: int, w: int, num_pos_feats: int, temperature: int, normalize: boo
 @functools.lru_cache(maxsize=64)
 def _on_device(h: int, w: int, num_pos_feats: int, temperature: int, normalize: bool,
                device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_cached(h, w, num_pos_feats, temperature, normalize)).to(device)
+    # a normal tensor even when first asked for under inference_mode, so that
+    # a training step may use it after a served request
+    with torch.inference_mode(False):
+        return torch.from_numpy(_cached(h, w, num_pos_feats, temperature, normalize)).to(device)
 
 
 def position_embedding_sine(

@@ -13,6 +13,12 @@ The resize is separable, y then x, and each pass computes
 `F.interpolate` blends both axes in one pass and rounds differently in bf16;
 the fused post-process's plain version depends on this order, so the port
 never calls it.
+
+`grid_sample` (bilinear, `zeros` or `border` padding, both `align_corners`)
+takes and gives NHWC tensors, as the JAX copy's does. The JAX package computes
+it with XLA outside any kernel; here `F.grid_sample` computes it, and its
+gradients with respect to the input and the grid (none through a clamped
+`border` coordinate, as `jnp.clip`'s).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 
 def _source_coords(out_size: int, in_size: int, align_corners: bool, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -99,3 +106,21 @@ def interpolate(
             raise ValueError("give size or scale_factor")
         size = (int(x.shape[1] * scale_factor), int(x.shape[2] * scale_factor))
     return resize_hw(x, size, (1, 2), mode, align_corners)
+
+
+def grid_sample(
+    x: torch.Tensor,
+    grid: torch.Tensor,
+    align_corners: bool = False,
+    padding_mode: str = "zeros",
+) -> torch.Tensor:
+    """`F.grid_sample(mode='bilinear', padding_mode='zeros'|'border')` on NHWC.
+
+    x: (B, H, W, C); grid: (B, Ho, Wo, 2) with normalized (gx, gy) in [-1, 1].
+    Returns (B, Ho, Wo, C).
+    """
+    if padding_mode not in ("zeros", "border"):
+        raise ValueError(f"unsupported padding_mode {padding_mode!r}")
+    out = F.grid_sample(x.permute(0, 3, 1, 2), grid, mode="bilinear", padding_mode=padding_mode,
+                        align_corners=align_corners)
+    return out.permute(0, 2, 3, 1)
