@@ -9,20 +9,30 @@ takes full-width training steps, and reports per-kernel times.
 Phases, one JSON line each: device, build, k1_vs_plain, k1_class_chunks,
 k2_vs_plain, k3_vs_plain, serve, stages, profile, kernels_on_served_tensors,
 reference_small, sequence, sequence_stages, frame, predictor,
-sequence_reference_small, train, train_reference_small. Then the card's name
-and power limit as nvidia-smi reports them, the {"kernels": [...]} line, and
-last {"ok": true, "device": {...}}. Any failure raises and the script exits
-non-zero without the last line. It needs a CUDA card and the repository's
-`uni_encoder_tpu_torch` package beside it; it imports nothing of JAX.
-Served requests run under torch.inference_mode (`serve_segmentation`,
-`serve_sequence`), as a server holds it.
+sequence_reference_small, train, train_reference_small, train_deterministic.
+Then the card's name and power limit as nvidia-smi reports them, the
+{"kernels": [...]} line, and last {"ok": true, "device": {...}}. Any failure
+raises and the script exits non-zero without the last line. It needs a CUDA
+card and the repository's `uni_encoder_tpu_torch` package beside it; it
+imports nothing of JAX. Served requests run under torch.inference_mode
+(`serve_segmentation`, `serve_sequence`), as a server holds it.
+
+K3, the backward of K2, is bitwise deterministic: `k3_vs_plain` fails unless
+three reruns give the same bytes in all three gradients, and checks its two
+edge cases (grad_out all zero, and one NaN in grad_out). The phase
+`train_deterministic` runs this script twice more as child processes
+(`--train-deterministic-child PATH`, with CUBLAS_WORKSPACE_CONFIG=:4096:8),
+each one `Trainer(deterministic=True)` step at train_reference_small's sizes,
+and fails unless their losses, watched gradients and updated parameters are
+the same bytes.
 
 Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of HBM, 67 TFLOP/s
 of fp32 outside the tensor cores and 495 TFLOP/s of TF32 on them (at the
 700 W power limit). K1 runs its semantic product on TF32 tensor cores, so
 its bound counts that product at the TF32 rate; the all-CUDA-core bound is
 reported beside it. The build phase reports ptxas's stack-frame bytes for
-each kernel (K2 and K3 must have none) and the HMMA count of K1's SASS.
+each kernel (K2 and each of K3's three kernels must have none) and the HMMA
+count of K1's SASS.
 """
 
 import json
@@ -62,6 +72,9 @@ WATCHED = ("sem_seg_head.pixel_decoder.transformer.encoder.layers.0.self_attn.sa
            "sem_seg_head.pixel_decoder.transformer.encoder.layers.0.self_attn.value_proj.weight",
            "backbone.layers.0.blocks.0.attn.qkv.weight", "motion_decoder.conv5.0.weight",
            "sem_seg_head.predictor.class_embed.weight", "text_encoder.transformer.resblocks.0.attn.in_proj_weight")
+# the CUDA kernels of K3's source; ptxas must give each a 0-byte stack frame
+K3_KERNELS = ("msda_grad_out_absmax_kernel", "msda_fused_backward_kernel", "msda_grad_value_epilogue_kernel")
+DETERMINISTIC_CHILD = "--train-deterministic-child"
 
 
 def emit(phase, **fields):
@@ -326,6 +339,71 @@ def k3_bound(B, Lq, S, M, D, L, P):
     return nbytes, flops
 
 
+def small_train_step(Trainer, cfg, device, deterministic=False):
+    """One fp32 training step at the full width on a small batch (2 crops
+    of 128x256 with 20 target slots, 8 valid; 2 frame triples of 64x128),
+    weights from seed 0 and draws from seed 1: (losses, the WATCHED
+    gradients, every updated parameter), on `device`."""
+    n_texts = cfg.model.one_former.num_object_queries - cfg.model.text_encoder.n_ctx
+    tr = Trainer(cfg, device=device, deterministic=deterministic)
+    st = tr.init(seed=0)
+    seg_s, seq_s = train_batches(1, TRAIN_BATCH, (128, 256), (64, 128), 20, 8, n_texts, device)
+    draws = tr.make_draws(torch.Generator().manual_seed(1), seg_s, seq_s, device)
+    _, m = tr.train_step(st, seg_s, seq_s, draws=draws)
+    params = dict(st.model.named_parameters())
+    return m, {n: params[n].grad for n in WATCHED}, {n: p.detach() for n, p in params.items()}
+
+
+def train_deterministic_child(out_path):
+    """The child of phase train_deterministic: one deterministic step,
+    its losses, watched gradients and updated parameters saved to
+    `out_path` as CPU tensors, with the step's seconds."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from uni_encoder_tpu_torch.config import Config
+    from uni_encoder_tpu_torch.training.train_step import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    losses, grads, params = small_train_step(Trainer, Config(), torch.device("cuda"), deterministic=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}  # noqa: E731
+    torch.save({"losses": cpu(losses), "grads": cpu(grads), "params": cpu(params), "seconds": seconds}, out_path)
+
+
+def k3_scatter_rows(shapes, off, logits, ref_abs, M):
+    """K3's scatter on these inputs: its valid corner writes (each one row of
+    D channels of grad_value, the kernel's 64-bit atomics / D), and the
+    distinct value rows those hit within one (b, q, head) and within a block
+    of 16 consecutive (b, head, q) work items, the kernel's thread block."""
+    from uni_encoder_tpu_torch.ops.ms_deform_attn import sampling_inputs
+
+    loc = sampling_inputs(off, logits, ref_abs, M)[0]  # (B, Lq, M, L, P, 2)
+    B, Lq = off.shape[:2]
+    S = sum(h * w for h, w in shapes)
+    toks, start = [], 0
+    for lvl, (H, W) in enumerate(shapes):
+        x0, y0 = loc[:, :, :, lvl, :, 0].floor(), loc[:, :, :, lvl, :, 1].floor()
+        xs = torch.stack([x0, x0 + 1, x0, x0 + 1], -1)
+        ys = torch.stack([y0, y0, y0 + 1, y0 + 1], -1)
+        valid = (xs >= 0) & (xs <= W - 1) & (ys >= 0) & (ys <= H - 1)
+        toks.append(torch.where(valid, start + ys * W + xs, -1.0).long())  # (B, Lq, M, P, 4)
+        start += H * W
+    tok = torch.stack(toks, 3)  # (B, Lq, M, L, P, 4)
+    b = torch.arange(B, device=tok.device).view(B, 1, 1, 1, 1, 1)
+    m = torch.arange(M, device=tok.device).view(1, 1, M, 1, 1, 1)
+    rows = torch.where(tok >= 0, (b * S + tok) * M + m, -1).permute(0, 2, 1, 3, 4, 5).reshape(B * M * Lq, -1)
+
+    def distinct(x):
+        x = x.sort(-1).values
+        return int(((x[:, 1:] != x[:, :-1]) & (x[:, 1:] >= 0)).sum() + (x[:, 0] >= 0).sum())
+
+    pad = rows.new_full(((-rows.shape[0]) % 16, rows.shape[1]), -1)
+    return {"corner_rows": int((rows >= 0).sum()), "distinct_rows_per_query_head": distinct(rows),
+            "distinct_rows_per_block_of_16": distinct(torch.cat([rows, pad]).reshape(-1, 16 * rows.shape[1]))}
+
+
 def fail_unless(phase, checks):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -379,13 +457,13 @@ def main():
         with open(kernels.build_log_path(name), errors="replace") as f:
             ptxas[name] = [l.strip() for l in f if "Used" in l or "spill" in l]
     k2_frames = ptxas_stack_frames(kernels.build_log_path("ms_deform_attn"), "msda_fused_kernel")
-    k3_frames = ptxas_stack_frames(kernels.build_log_path("ms_deform_attn_backward"), "msda_fused_backward_kernel")
+    k3_frames = {k: ptxas_stack_frames(kernels.build_log_path("ms_deform_attn_backward"), k) for k in K3_KERNELS}
     k1_frames = ptxas_stack_frames(kernels.build_log_path("fused_postprocess"), "fused_kernel")
     k1_hmma = sass_count(kernels.library_path("fused_postprocess"), "HMMA")
     emit("build", seconds=time.perf_counter() - t0, per_source=secs, ptxas=ptxas,
          k2_stack_frame_bytes=k2_frames, k3_stack_frame_bytes=k3_frames, k1_stack_frame_bytes=k1_frames,
          k1_sass_hmma=k1_hmma)
-    for name, frames in (("K2", k2_frames), ("K3", k3_frames)):
+    for name, frames in (("K2", k2_frames), *((f"K3 {k}", v) for k, v in k3_frames.items())):
         if not frames or any(frames):
             raise AssertionError(f"{name} stack frames {frames}: expected 0 bytes for every instantiation")
     if k1_hmma == 0:
@@ -479,27 +557,49 @@ def main():
     value = torch.randn(B, S, M, D, generator=g).to(dev)
     off, logits = msda_inputs(g, B, Lq, M, L, P, torch.float32, dev)
     grad_out = torch.randn(B, Lq, M * D, generator=g).to(dev)
-    got = ms_deform_attn_fused_backward_cuda(value, shapes, off, logits, ref_abs, grad_out)
-    again = ms_deform_attn_fused_backward_cuda(value, shapes, off, logits, ref_abs, grad_out)
+
+    def k3(go):
+        return ms_deform_attn_fused_backward_cuda(value, shapes, off, logits, ref_abs, go)
+
+    got = k3(grad_out)
+    # bitwise deterministic: three reruns give the same bytes in all three
+    reruns = [k3(grad_out) for _ in range(3)]
+    for i, again in enumerate(reruns):
+        for name, a, b in zip(("value", "offsets", "logits"), got, again):
+            if not torch.equal(a, b):
+                raise AssertionError(f"K3 rerun {i + 1} differs from the first run in grad {name}")
     leaves = [x.clone().requires_grad_(True) for x in (value, off, logits)]
     plain_out = ms_deform_attn_fused_plain(leaves[0], shapes, leaves[1], leaves[2], ref_abs)
     ref = torch.autograd.grad(plain_out, leaves, grad_out, retain_graph=True)
     k3_err = {}
     for name, a, b in zip(("value", "offsets", "logits"), got, ref):
-        # fp32 sums of up to a few hundred products in another order (d value
-        # by atomics, in a run-dependent order): atol/rtol 1e-4
+        # fp32 sums of up to a few hundred products in another order than
+        # autograd's (d value summed exactly in fixed point, then rounded to
+        # fp32 once; d offsets and d logits by shuffles): atol/rtol 1e-4
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4, msg=f"K3 grad {name}")
         k3_err[name] = (a - b).abs().max().item()
-    k3_ms = cuda_ms(lambda: ms_deform_attn_fused_backward_cuda(value, shapes, off, logits, ref_abs, grad_out), 20)
+    # the edge cases: grad_out all zero gives exactly zero gradients; one NaN
+    # in grad_out makes all of grad_value NaN, never silent zeros
+    zero = k3(torch.zeros_like(grad_out))
+    nan_out = grad_out.clone()
+    nan_out.view(-1)[nan_out.numel() // 3] = float("nan")
+    nan_value = k3(nan_out)[0]
+    edge = {"zero_grad_out_gives_zero_gradients": all(bool((x == 0).all()) for x in zero),
+            "nan_in_grad_out_gives_nan_grad_value": bool(torch.isnan(nan_value).all())}
+    fail_unless("k3_vs_plain", edge)
+    k3_ms = cuda_ms(lambda: k3(grad_out), 20)
     k3_plain_ms = cuda_ms(lambda: torch.autograd.grad(plain_out, leaves, grad_out, retain_graph=True), 5)
     emit("k3_vs_plain", shape={"B": B, "Lq": Lq, "S": S, "M": M, "D": D, "L": L, "P": P}, dtype="float32",
-         max_abs_err=k3_err, grad_value_rerun_max_abs_diff=(again[0] - got[0]).abs().max().item(),
+         max_abs_err=k3_err, deterministic_reruns=len(reruns), edge_cases=edge,
+         scatter=k3_scatter_rows(shapes, off, logits, ref_abs, M),
          ms=k3_ms, plain_ms=k3_plain_ms, plain="autograd backward of ms_deform_attn_fused_plain",
-         stack_frame_bytes=k3_frames, tolerance="atol/rtol 1e-4 (fp32 sums in another, run-dependent order)",
+         stack_frame_bytes=k3_frames,
+         tolerance="atol/rtol 1e-4 (fp32 sums in another order); reruns byte-identical",
          **bound_fields(*k3_bound(B, Lq, S, M, D, L, P)))
     results["k3"] = dict(max_abs_err=max(k3_err.values()), ms=k3_ms, plain_ms=k3_plain_ms,
-                         stack_frame_bytes=max(k3_frames), **bound_fields(*k3_bound(B, Lq, S, M, D, L, P)))
-    del value, off, logits, grad_out, got, again, leaves, plain_out, ref
+                         stack_frame_bytes=max(max(v) for v in k3_frames.values()), deterministic=True,
+                         **bound_fields(*k3_bound(B, Lq, S, M, D, L, P)))
+    del value, off, logits, grad_out, got, reruns, leaves, plain_out, ref, zero, nan_out, nan_value
     torch.cuda.empty_cache()
 
     # ------------------------------------------- serve three full-width requests
@@ -884,32 +984,59 @@ def main():
 
     # ---- small input: one training step on the GPU against the CPU path, fp32
     # with TF32 off, the same weights (seed 0) and the same draws
+    def small_step_errors(phase, got, ref):
+        """Losses within atol 1e-4 + rtol 1e-3 and the WATCHED gradients
+        within 1e-3 relative norm (cuBLAS/cuDNN sum in other orders than
+        the CPU, or than their deterministic algorithms); returns both."""
+        loss_err, grad_err = {}, {}
+        for k, r in ref[0].items():
+            if not abs(got[0][k] - r) <= 1e-4 + 1e-3 * abs(r):
+                raise AssertionError(f"{phase} {k}: {got[0][k]} against {r}")
+            loss_err[k] = abs(got[0][k] - r)
+        for n in WATCHED:
+            a, b = got[1][n], ref[1][n]
+            grad_err[n] = ((a - b).norm() / b.norm()).item()
+            if not grad_err[n] < 1e-3:
+                raise AssertionError(f"{phase} grad {n}: relative error {grad_err[n]}")
+        return loss_err, grad_err
+
     small = {}
     for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
-        tr = Trainer(train_cfg, device=d)
-        st = tr.init(seed=0)
-        seg_s, seq_s = train_batches(1, TRAIN_BATCH, (128, 256), (64, 128), 20, 8, n_texts, d)
-        draws = tr.make_draws(torch.Generator().manual_seed(1), seg_s, seq_s, d)
-        _, m = tr.train_step(st, seg_s, seq_s, draws=draws)
-        params = dict(st.model.named_parameters())
-        small[name] = ({k: float(v) for k, v in m.items()}, {n: params[n].grad.cpu() for n in WATCHED})
-        del tr, st, params
-    loss_err, grad_err = {}, {}
-    for k, ref in small["cpu"][0].items():
-        got = small["cuda"][0][k]
-        # cuBLAS/cuDNN sum in other orders than the CPU: atol 1e-4, rtol 1e-3
-        if not abs(got - ref) <= 1e-4 + 1e-3 * abs(ref):
-            raise AssertionError(f"train_reference_small {k}: cuda {got} cpu {ref}")
-        loss_err[k] = abs(got - ref)
-    for n in WATCHED:
-        a, b = small["cuda"][1][n], small["cpu"][1][n]
-        grad_err[n] = ((a - b).norm() / b.norm()).item()
-        if not grad_err[n] < 1e-3:
-            raise AssertionError(f"train_reference_small grad {n}: relative error {grad_err[n]}")
+        m, grads, _ = small_train_step(Trainer, train_cfg, d)
+        small[name] = ({k: float(v) for k, v in m.items()}, {n: v.cpu() for n, v in grads.items()})
+        del m, grads
+    loss_err, grad_err = small_step_errors("train_reference_small", small["cuda"], small["cpu"])
     emit("train_reference_small", segmentation=[TRAIN_BATCH, 128, 256, 3], sequence=[TRAIN_BATCH, 3, 64, 128, 3],
          dtype="float32", loss_abs_err=loss_err, grad_relative_norm_err=grad_err,
          tolerance="losses atol 1e-4 + rtol 1e-3; gradients |cuda - cpu| / |cpu| < 1e-3")
-    del small
+
+    # ---- the same step in two processes, deterministic: the same bytes
+    t0 = time.perf_counter()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    paths = [os.path.join(os.path.dirname(kernels.BUILD_DIR), f"train_deterministic_{i}.pt") for i in range(2)]
+    for path in paths:
+        child = subprocess.run([sys.executable, os.path.abspath(__file__), DETERMINISTIC_CHILD, path], env=env,
+                               capture_output=True, text=True, timeout=300)
+        if child.returncode != 0:
+            raise AssertionError(f"train_deterministic child exited {child.returncode}:\n{child.stderr[-4000:]}")
+    runs = [torch.load(path) for path in paths]
+    equal = {group: all(runs[0][group][k].numpy().tobytes() == runs[1][group][k].numpy().tobytes()
+                        for k in runs[0][group]) and sorted(runs[0][group]) == sorted(runs[1][group])
+             for group in ("losses", "grads", "params")}
+    # and a child's deterministic step against this process's default one
+    det = ({k: float(v) for k, v in runs[0]["losses"].items()}, runs[0]["grads"])
+    det_loss_err, det_grad_err = small_step_errors("train_deterministic", det, small["cuda"])
+    emit("train_deterministic", children=len(paths), cublas_workspace_config=env["CUBLAS_WORKSPACE_CONFIG"],
+         child_step_s=[r["seconds"] for r in runs], byte_equal=equal,
+         compared={"losses": len(runs[0]["losses"]), "grads": len(runs[0]["grads"]),
+                   "params": len(runs[0]["params"]),
+                   "param_elements": sum(v.numel() for v in runs[0]["params"].values())},
+         vs_default_step={"loss_abs_err": det_loss_err, "grad_relative_norm_err": det_grad_err},
+         seconds=time.perf_counter() - t0, card=smi)
+    fail_unless("train_deterministic", equal)
+    del small, runs
+    for path in paths:
+        os.remove(path)
 
     print(smi, flush=True)
     rows = []
@@ -929,11 +1056,14 @@ def main():
                      "launches": launches[key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": None,
-                     **{k: r[k] for k in ("function_ms", "stack_frame_bytes") if k in r}})
+                     **{k: r[k] for k in ("function_ms", "stack_frame_bytes", "deterministic") if k in r}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == DETERMINISTIC_CHILD:
+        train_deterministic_child(sys.argv[2])
+    else:
+        main()

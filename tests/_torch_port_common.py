@@ -124,3 +124,40 @@ def model_pair(seed: int):
 
 def t(x):
     return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+# ------------------------------------------------------------- micro trainer
+def micro_config(C):
+    """tests/test_train_step.py's micro config (stochastic depth off), from
+    either package's config module `C`."""
+    swin = C.SwinConfig(embed_dim=16, depths=(1, 1, 1, 1), num_heads=(1, 2, 4, 8), drop_path_rate=0.0)
+    of = C.OneFormerConfig(num_object_queries=8, dec_layers=2, class_dec_layers=1, dim_feedforward=64, hidden_dim=32,
+                           nheads=4, train_num_points=32, oversample_ratio=2.0)
+    head = C.SemSegHeadConfig(num_classes=19, convs_dim=32, mask_dim=32, transformer_enc_layers=1)
+    te = C.TextEncoderConfig(width=32, num_layers=1, vocab_size=512, context_length=16, n_ctx=2)
+    model = C.ModelConfig(backbone=C.BackboneConfig(name="swin", swin=swin), sem_seg_head=head, one_former=of,
+                          text_encoder=te, is_train=True)
+    return C.Config(model=model, input=C.InputConfig(task_seq_len=16, max_seq_len=16))
+
+
+def micro_batches():
+    """tests/test_train_step.py's batches, as numpy arrays."""
+    rng = np.random.RandomState(0)
+    B, H, W, N = 2, 32, 32, 2
+    seg = {"images": rng.randn(B, H, W, 3).astype(np.float32), "task_tokens": np.ones((B, 16), np.int64),
+           "text_tokens": np.ones((B, 6, 16), np.int64), "labels": rng.randint(0, 19, (B, N)),
+           "masks": rng.rand(B, N, H // 4, W // 4) > 0.5, "valid": np.ones((B, N), bool)}
+    K = np.broadcast_to(np.eye(4, dtype=np.float32), (B, 4, 4)).copy()
+    K[:, 0, 0] = K[:, 1, 1] = 25.0
+    K[:, 0, 2], K[:, 1, 2] = W / 2, H / 2
+    seq = {"images": (rng.randn(B, H, W, 3) * 0.1).astype(np.float32),
+           "prev_images": (rng.randn(B, H, W, 3) * 0.1).astype(np.float32),
+           "next_images": (rng.randn(B, H, W, 3) * 0.1).astype(np.float32),
+           "K": K, "inv_K": np.linalg.inv(K).astype(np.float32)}
+    return seg, seq

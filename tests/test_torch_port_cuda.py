@@ -161,8 +161,8 @@ def test_ms_deform_attn_backward_kernel_matches_plain(cuda, D):
     """The backward kernel against autograd of the plain fused version, fp32,
     on the ragged levels ((6, 8), (3, 4), (2, 2)) with one offset in ten far
     outside its map. atol/rtol 1e-4: each gradient is an fp32 sum of up to a
-    few hundred products, which the kernel takes in another order (and, for
-    d value, with atomics in a run-dependent order)."""
+    few hundred products, which the kernel takes in another order (d value
+    exactly, in fixed point, rounded to fp32 once)."""
     from uni_encoder_tpu_torch.ops.ms_deform_attn import (
         ms_deform_attn_fused_backward_cuda,
         ms_deform_attn_fused_plain,
@@ -181,6 +181,70 @@ def test_ms_deform_attn_backward_kernel_matches_plain(cuda, D):
     with pytest.raises(ValueError):  # the backward kernel is fp32 only
         ms_deform_attn_fused_backward_cuda(value.bfloat16(), shapes, off.bfloat16(), logits.bfloat16(), ref_abs,
                                            grad_out)
+
+
+@pytest.mark.parametrize("D", [8, 32, 24])
+def test_ms_deform_attn_backward_kernel_is_deterministic(cuda, D):
+    """Three reruns of the backward kernel on the same inputs give the same
+    bytes in all three gradients (d value is summed in fixed point, so the
+    order of its atomics does not matter)."""
+    from uni_encoder_tpu_torch.ops.ms_deform_attn import ms_deform_attn_fused_backward_cuda
+
+    shapes = ((6, 8), (3, 4), (2, 2))
+    value, off, logits, ref_abs = _msda_inputs(2, 4, D, 64, shapes, 5, cuda, torch.float32)
+    grad_out = torch.from_numpy(np.random.RandomState(6).randn(2, 64, 4 * D).astype(np.float32)).to(cuda)
+    first = ms_deform_attn_fused_backward_cuda(value, shapes, off, logits, ref_abs, grad_out)
+    for _ in range(3):
+        again = ms_deform_attn_fused_backward_cuda(value, shapes, off, logits, ref_abs, grad_out)
+        for name, a, b in zip(("value", "offsets", "logits"), first, again):
+            assert torch.equal(a, b), name
+
+
+def test_ms_deform_attn_backward_kernel_edge_cases(cuda):
+    """grad_out all zero gives exactly zero gradients; one NaN in grad_out
+    makes d value non-finite (all NaN), never silent zeros."""
+    from uni_encoder_tpu_torch.ops.ms_deform_attn import ms_deform_attn_fused_backward_cuda
+
+    shapes = ((6, 8), (3, 4), (2, 2))
+    value, off, logits, ref_abs = _msda_inputs(2, 4, 32, 64, shapes, 7, cuda, torch.float32)
+    zero = ms_deform_attn_fused_backward_cuda(value, shapes, off, logits, ref_abs,
+                                              torch.zeros((2, 64, 128), device=cuda))
+    for name, x in zip(("value", "offsets", "logits"), zero):
+        assert bool((x == 0).all()), name
+    grad_out = torch.from_numpy(np.random.RandomState(8).randn(2, 64, 128).astype(np.float32)).to(cuda)
+    grad_out[1, 17, 33] = float("nan")
+    grad_value = ms_deform_attn_fused_backward_cuda(value, shapes, off, logits, ref_abs, grad_out)[0]
+    assert bool(torch.isnan(grad_value).all())
+
+
+def test_deterministic_train_step_is_reproducible(cuda, monkeypatch):
+    """Trainer(deterministic=True) at the micro config on the card: two steps
+    from the same init, batch and draws give the same bytes in every
+    gradient, loss and updated parameter. Both run on one stream of one
+    process; chip_smoke.py's train_deterministic phase holds two processes
+    to the same at the full width."""
+    import _torch_port_common as common
+    from uni_encoder_tpu_torch import config as TC
+    from uni_encoder_tpu_torch.training.train_step import Trainer
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    seg, seq = (common.tree_map(lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(cuda), b)
+                for b in common.micro_batches())
+    runs = []
+    for _ in range(2):
+        trainer = Trainer(common.micro_config(TC), device=cuda, deterministic=True)
+        state = trainer.init(seed=0)
+        draws = trainer.make_draws(torch.Generator().manual_seed(3), seg, seq, cuda)
+        metrics = trainer.train_step(state, seg, seq, draws=draws)[1]
+        params = dict(state.model.named_parameters())
+        runs.append(({k: v.cpu() for k, v in metrics.items()},
+                     {k: p.grad.cpu() for k, p in params.items() if p.grad is not None},
+                     {k: p.detach().cpu() for k, p in params.items()}))
+    assert not torch.are_deterministic_algorithms_enabled()
+    assert runs[0][1]
+    for a, b in zip(*runs):
+        assert a.keys() == b.keys()
+        assert [k for k in a if a[k].numpy().tobytes() != b[k].numpy().tobytes()] == []
 
 
 def test_ms_deform_attn_cuda_op_carries_grad_fn(cuda):

@@ -184,35 +184,6 @@ def test_forward_sequence_train_matches_jax(train_pair):
 
 
 # ------------------------------------------------------------- whole steps
-def _micro_config(C):
-    """tests/test_train_step.py's micro config (stochastic depth off)."""
-    swin = C.SwinConfig(embed_dim=16, depths=(1, 1, 1, 1), num_heads=(1, 2, 4, 8), drop_path_rate=0.0)
-    of = C.OneFormerConfig(num_object_queries=8, dec_layers=2, class_dec_layers=1, dim_feedforward=64, hidden_dim=32,
-                           nheads=4, train_num_points=32, oversample_ratio=2.0)
-    head = C.SemSegHeadConfig(num_classes=19, convs_dim=32, mask_dim=32, transformer_enc_layers=1)
-    te = C.TextEncoderConfig(width=32, num_layers=1, vocab_size=512, context_length=16, n_ctx=2)
-    model = C.ModelConfig(backbone=C.BackboneConfig(name="swin", swin=swin), sem_seg_head=head, one_former=of,
-                          text_encoder=te, is_train=True)
-    return C.Config(model=model, input=C.InputConfig(task_seq_len=16, max_seq_len=16))
-
-
-def _micro_batches():
-    """tests/test_train_step.py's batches, as numpy arrays."""
-    rng = np.random.RandomState(0)
-    B, H, W, N = 2, 32, 32, 2
-    seg = {"images": rng.randn(B, H, W, 3).astype(np.float32), "task_tokens": np.ones((B, 16), np.int64),
-           "text_tokens": np.ones((B, 6, 16), np.int64), "labels": rng.randint(0, 19, (B, N)),
-           "masks": rng.rand(B, N, H // 4, W // 4) > 0.5, "valid": np.ones((B, N), bool)}
-    K = np.broadcast_to(np.eye(4, dtype=np.float32), (B, 4, 4)).copy()
-    K[:, 0, 0] = K[:, 1, 1] = 25.0
-    K[:, 0, 2], K[:, 1, 2] = W / 2, H / 2
-    seq = {"images": (rng.randn(B, H, W, 3) * 0.1).astype(np.float32),
-           "prev_images": (rng.randn(B, H, W, 3) * 0.1).astype(np.float32),
-           "next_images": (rng.randn(B, H, W, 3) * 0.1).astype(np.float32),
-           "K": K, "inv_K": np.linalg.inv(K).astype(np.float32)}
-    return seg, seq
-
-
 def test_train_step_micro_two_steps():
     """The port's Trainer at the micro config on the CPU: two steps from one
     generator; every loss finite, the parameters moved, the BatchNorm
@@ -221,10 +192,10 @@ def test_train_step_micro_two_steps():
     from uni_encoder_tpu_torch import config as TC
     from uni_encoder_tpu_torch.training.train_step import Trainer
 
-    seg, seq = (_tree(t, b) for b in _micro_batches())
+    seg, seq = (common.tree_map(t, b) for b in common.micro_batches())
     runs = []
     for _ in range(2):
-        trainer = Trainer(_micro_config(TC), device="cpu")
+        trainer = Trainer(common.micro_config(TC), device="cpu")
         state = trainer.init(seed=0)
         p0 = {k: v.detach().clone() for k, v in state.model.named_parameters()}
         s0 = {k: v.clone() for k, v in state.model.named_buffers() if "running_" in k}
@@ -239,12 +210,6 @@ def test_train_step_micro_two_steps():
         assert state.step == 2 and state.opt.count == 2
     for a, b in zip(*runs):
         assert all(torch.equal(a[k], b[k]) for k in a)
-
-
-def _tree(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 def _jax_draws(rng, trainer, seg, seq):
@@ -316,10 +281,10 @@ def test_train_step_matches_jax():
     from uni_encoder_tpu_torch.models.oneformer import UniEncoder
     from uni_encoder_tpu_torch.training.train_step import Trainer
 
-    seg_np, seq_np = _micro_batches()
+    seg_np, seq_np = common.micro_batches()
     seg_j = {k: jnp.asarray(v.astype(np.int32) if v.dtype == np.int64 else v) for k, v in seg_np.items()}
     seq_j = {k: jnp.asarray(v) for k, v in seq_np.items()}
-    jt = JTrainer(_micro_config(JC))
+    jt = JTrainer(common.micro_config(JC))
     jstate = jax.jit(jt.init)(jax.random.PRNGKey(0), seg_j, seq_j)
     rng = jax.random.PRNGKey(1)
 
@@ -344,11 +309,11 @@ def test_train_step_matches_jax():
     (_, ref), (gp, gt) = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
         (jstate.params, jstate.text_params), jstate.batch_stats)
 
-    model = UniEncoder(_micro_config(TC).model, device="cpu", task_seq_len=16)
+    model = UniEncoder(common.micro_config(TC).model, device="cpu", task_seq_len=16)
     model.load_state_dict(state_dict_from_jax(jstate.params, jstate.batch_stats, jstate.text_params), strict=True)
-    trainer = Trainer(_micro_config(TC), device="cpu")
+    trainer = Trainer(common.micro_config(TC), device="cpu")
     state = trainer.init(model=model)
-    seg, seq = (_tree(t, b) for b in (seg_np, seq_np))
+    seg, seq = (common.tree_map(t, b) for b in (seg_np, seq_np))
     got = trainer.losses(state, seg, seq, _jax_draws(rng, trainer, seg, seq))
     got["loss"].backward()
     rtol = {"monodepth/d_ground": 2e-3, "loss_monodepth": 5e-4, "loss": 5e-4}

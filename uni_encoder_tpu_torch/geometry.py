@@ -120,14 +120,22 @@ def compute_smooth_loss(inp: torch.Tensor, img: Optional[torch.Tensor] = None) -
     return gx.mean() + gy.mean()
 
 
+def reflect_pad1(z: torch.Tensor) -> torch.Tensor:
+    """One-pixel reflection pad of the two spatial axes of an NHWC tensor
+    (`jnp.pad(..., mode="reflect")`), from slices and `torch.cat`: its
+    backward is copies and adds, deterministic on CUDA, where
+    ReflectionPad2d's backward is not."""
+    z = torch.cat([z[:, 1:2], z, z[:, -2:-1]], dim=1)
+    return torch.cat([z[:, :, 1:2], z, z[:, :, -2:-1]], dim=2)
+
+
 def ssim(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """SSIM loss map between NHWC images: 3x3 means over reflection-padded
     inputs."""
     C1, C2 = 0.01 ** 2, 0.03 ** 2
 
     def pool(z):
-        z = F.pad(z.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
-        return F.avg_pool2d(z, 3, stride=1).permute(0, 2, 3, 1)
+        return F.avg_pool2d(reflect_pad1(z).permute(0, 3, 1, 2), 3, stride=1).permute(0, 2, 3, 1)
 
     mu_x, mu_y = pool(x), pool(y)
     sig_x = pool(x * x) - mu_x ** 2

@@ -32,11 +32,17 @@ backward is the hand-written kernel `kernels/csrc/ms_deform_attn_backward.cu`
 and logits; `ref_abs`, a constant of the shapes, gets none. On CPU tensors it
 runs the plain version, `ms_deform_attn_fused_plain`, which autograd
 differentiates; that is also the backward kernel's reference.
+
+The backward kernel is bitwise deterministic: it sums the scatter into
+grad_value exactly, as 64-bit integers in units of 2**-e, where e comes from
+max|grad_out| on the device by the rule in `fixed_point_shift` and
+`fixed_point_exponent`, and converts the sums to fp32 once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Sequence, Tuple
 
 import torch
@@ -148,6 +154,33 @@ def _check_fused_args(value, spatial_shapes, offsets, logits, ref_abs):
     return B, S, M, D, Lq, L, P
 
 
+FIXED_POINT_BITS = 62  # |sum| < 2**62 units: a bit of headroom below int64's sign bit
+
+
+def fixed_point_shift(Lq: int) -> int:
+    """The query-count part of the backward kernel's fixed-point scale.
+
+    grad_value's sums are taken in units of 2**-e with
+    e = fixed_point_shift(Lq) - floor(log2(max|grad_out|)). A value row gets
+    at most one corner of each sample (l, p) of each query, with corner
+    weight at most 1, and the attention weights of a query's samples sum to
+    1, so |sum| <= Lq * max|g| < 2**(ceil(log2 Lq) + floor(log2 max|g|) + 1),
+    which is at most 2**FIXED_POINT_BITS units. One unit is at most
+    2**-(shift) * max|g|: 2**-47 * max|g| at Lq = 10752. The wrapper passes
+    this to the kernel, which reads the exponent of max|g| on the device."""
+    if Lq < 1:
+        raise ValueError(f"Lq must be positive, got {Lq}")
+    return FIXED_POINT_BITS - 1 - (Lq - 1).bit_length()
+
+
+def fixed_point_exponent(max_abs: float, Lq: int) -> int:
+    """e of the fixed-point unit 2**-e for a finite max|grad_out| > 0, as the
+    kernel computes it from the float's exponent."""
+    if not (0.0 < max_abs < math.inf):
+        raise ValueError(f"max|grad_out| must be finite and positive, got {max_abs}")
+    return fixed_point_shift(Lq) - (math.frexp(max_abs)[1] - 1)
+
+
 def _shapes_arg(spatial_shapes):
     return (ctypes.c_int * (2 * len(spatial_shapes)))(*[int(v) for hw in spatial_shapes for v in hw])
 
@@ -196,9 +229,10 @@ def ms_deform_attn_fused_backward_cuda(
     grad_out: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward CUDA kernel: (grad_value, grad_offsets,
-    grad_logits) of the fused op for `grad_out` (B, Lq, M * D), all fp32.
-    grad_value is summed with atomics, in a run-dependent order. Counts its
-    launches in `.launches`."""
+    grad_logits) of the fused op for `grad_out` (B, Lq, M * D), all fp32 and
+    bitwise the same from run to run (grad_value summed in fixed point; NaN
+    everywhere if grad_out holds an inf or a NaN). One call is three CUDA
+    kernels on the current stream and counts one in `.launches`."""
     B, S, M, D, Lq, L, P = _check_fused_args(value, spatial_shapes, offsets, logits, ref_abs)
     if value.dtype != torch.float32:
         raise ValueError(f"the backward kernel is built for fp32, the training dtype; got {value.dtype}")
@@ -212,17 +246,21 @@ def ms_deform_attn_fused_backward_cuda(
     lib = load("ms_deform_attn_backward")
     fn = lib.msda_fused_backward
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+            ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p,
+        ]
         fn.restype = ctypes.c_int
-    grad_value = torch.zeros_like(value)
+    grad_value = torch.empty_like(value)
     grad_offsets = torch.empty_like(offsets)
     grad_logits = torch.empty_like(logits)
+    acc = torch.zeros(value.shape, dtype=torch.int64, device=value.device)  # the fixed-point sums
+    max_bits = torch.zeros((1,), dtype=torch.int32, device=value.device)  # max|grad_out|'s bits
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(
             value.data_ptr(), offsets.data_ptr(), logits.data_ptr(), ref_abs.data_ptr(), grad_out.data_ptr(),
-            grad_value.data_ptr(), grad_offsets.data_ptr(), grad_logits.data_ptr(),
-            B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes), stream,
+            grad_value.data_ptr(), grad_offsets.data_ptr(), grad_logits.data_ptr(), acc.data_ptr(),
+            max_bits.data_ptr(), B, S, M, D, Lq, L, P, _shapes_arg(spatial_shapes), fixed_point_shift(Lq), stream,
         )
     if rc != 0:
         raise RuntimeError(f"ms_deform_attn backward kernel launch failed: cudaError {rc}")

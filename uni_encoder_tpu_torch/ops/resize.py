@@ -15,10 +15,12 @@ the fused post-process's plain version depends on this order, so the port
 never calls it.
 
 `grid_sample` (bilinear, `zeros` or `border` padding, both `align_corners`)
-takes and gives NHWC tensors, as the JAX copy's does. The JAX package computes
-it with XLA outside any kernel; here `F.grid_sample` computes it, and its
-gradients with respect to the input and the grid (none through a clamped
-`border` coordinate, as `jnp.clip`'s).
+takes and gives NHWC tensors, as the JAX copy's does, and is written as the
+JAX copy writes it: four corner gathers with their weights, clamps and
+validity (one `torch.gather` of all four). Its gradient with respect to the
+input is then a `scatter_add`, which has a deterministic CUDA version
+(`F.grid_sample`'s backward has none); the grid's gradient flows through
+the corner weights (none through a clamped `border` coordinate).
 """
 
 from __future__ import annotations
@@ -26,7 +28,6 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
 
 def _source_coords(out_size: int, in_size: int, align_corners: bool, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -117,10 +118,41 @@ def grid_sample(
     """`F.grid_sample(mode='bilinear', padding_mode='zeros'|'border')` on NHWC.
 
     x: (B, H, W, C); grid: (B, Ho, Wo, 2) with normalized (gx, gy) in [-1, 1].
-    Returns (B, Ho, Wo, C).
+    Returns (B, Ho, Wo, C): the corners (y0, x0), (y0, x0+1), (y0+1, x0),
+    (y0+1, x0+1), in that order, each weighted by (x weight * y weight) *
+    validity as the JAX copy weights them (the validity is folded into
+    each axis's weight: the same products, since it is 0 or 1). Each axis's
+    two corners are computed once, and the four are their outer product.
     """
     if padding_mode not in ("zeros", "border"):
         raise ValueError(f"unsupported padding_mode {padding_mode!r}")
-    out = F.grid_sample(x.permute(0, 3, 1, 2), grid, mode="bilinear", padding_mode=padding_mode,
-                        align_corners=align_corners)
-    return out.permute(0, 2, 3, 1)
+    B, H, W, C = x.shape
+    Ho, Wo = grid.shape[1], grid.shape[2]
+    gx, gy = grid[..., 0], grid[..., 1]
+    if align_corners:
+        fx = (gx + 1.0) * 0.5 * (W - 1)
+        fy = (gy + 1.0) * 0.5 * (H - 1)
+    else:
+        fx = ((gx + 1.0) * W - 1.0) * 0.5
+        fy = ((gy + 1.0) * H - 1.0) * 0.5
+    if padding_mode == "border":  # torch clamps the source coordinate, so the corner weights follow
+        fx = torch.clamp(fx, 0, W - 1)
+        fy = torch.clamp(fy, 0, H - 1)
+    step = torch.arange(2, dtype=fx.dtype, device=fx.device)  # made on the device: no host copy, no sync
+
+    def axis(f, n):
+        """(weights, clamped indices) of the two corners along one axis, (..., 2)."""
+        lo = torch.floor(f)
+        frac = (f - lo)[..., None]
+        i = lo[..., None] + step
+        wgt = torch.where(step > 0, frac, 1.0 - frac)
+        if padding_mode == "zeros":
+            wgt = wgt * ((i >= 0) & (i <= n - 1)).to(wgt.dtype)
+        return wgt, torch.clamp(i, 0, n - 1).long()
+
+    wx, ix = axis(fx, W)
+    wy, iy = axis(fy, H)
+    w = wx[..., None, :] * wy[..., :, None]  # (B, Ho, Wo, 2 (y), 2 (x))
+    lin = (iy * W)[..., :, None] + ix[..., None, :]
+    corners = torch.gather(x.reshape(B, H * W, C), 1, lin.reshape(B, -1, 1).expand(B, Ho * Wo * 4, C))
+    return (corners.reshape(B, Ho, Wo, 4, C) * w.reshape(B, Ho, Wo, 4, 1)).sum(dim=3)

@@ -124,8 +124,12 @@ class SetCriterion:
         t = t / (torch.linalg.norm(t, dim=-1, keepdim=True) + 1e-8)
         scale = 1.0 / self.tau if logit_scale is None else torch.clamp(torch.exp(logit_scale), max=100.0)
         logits = q @ t.T * scale
-        labels = torch.arange(q.shape[0], device=q.device)
-        return F.cross_entropy(logits, labels) + F.cross_entropy(logits.T, labels)
+        # the targets are the diagonal: -log_softmax picked there, as the
+        # class loss does (F.cross_entropy's NLLLoss has no deterministic
+        # CUDA version)
+        l_qt = -torch.log_softmax(logits, dim=1).diagonal().mean()
+        l_tq = -torch.log_softmax(logits, dim=0).diagonal().mean()
+        return l_qt + l_tq
 
     # ------------------------------------------------------------------ main
     def __call__(self, outputs: Dict, targets: Dict, draws: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:

@@ -65,8 +65,9 @@ def match_costs(
     c_class = -prob.gather(2, tgt_labels[:, None, :].expand(B, Q, N).long())  # (B, Q, N)
     # every image's masks sampled at its points: the masks ride as channels
     grid = (2.0 * points - 1.0)[:, None]  # (B, 1, P, 2)
-    pred_pts = grid_sample(pred_masks.permute(0, 2, 3, 1), grid)[:, 0].transpose(1, 2)  # (B, Q, P)
-    tgt_pts = grid_sample(tgt_masks.to(pred_masks.dtype).permute(0, 2, 3, 1), grid)[:, 0].transpose(1, 2)
+    # (B, Q, P) and (B, N, P), made row-major for the cost products below
+    pred_pts = grid_sample(pred_masks.permute(0, 2, 3, 1), grid)[:, 0].transpose(1, 2).contiguous()
+    tgt_pts = grid_sample(tgt_masks.to(pred_masks.dtype).permute(0, 2, 3, 1), grid)[:, 0].transpose(1, 2).contiguous()
     cost = (cost_mask * batch_sigmoid_ce_cost(pred_pts, tgt_pts) + cost_class * c_class
             + cost_dice * batch_dice_cost(pred_pts, tgt_pts))
     cost = torch.where(torch.isfinite(cost), cost, BIG_COST)  # NaN guard

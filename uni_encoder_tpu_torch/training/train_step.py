@@ -18,11 +18,26 @@ one `torch.Generator`, in a fixed order (the Swin keep masks of the
 segmentation and the sequence pass, the criterion's points per prediction
 set, the monodepth noise and RANSAC indices per scale), so that a step is
 reproducible and its draws can be handed to another implementation.
+
+Determinism: `Trainer(cfg, deterministic=True)` takes each step with
+cuDNN's benchmark off, `cudnn.deterministic` on and
+`torch.use_deterministic_algorithms(True)`, and restores all three after
+the step. Every op on the step's path then has a deterministic CUDA
+backward (the deformable-sampling backward kernel sums in fixed point;
+`grid_sample`, the SSIM pad and the InfoNCE term are written without
+`F.grid_sample`, `ReflectionPad2d` and `NLLLoss`), so the same state,
+batch and draws give the same bytes from process to process. On CUDA,
+cuBLAS needs `CUBLAS_WORKSPACE_CONFIG=:4096:8` (or `:16:8`) in the
+environment before the process's first cuBLAS call; the step raises
+without it. The default keeps cuDNN's benchmark mode, which picks the
+fastest convolution algorithms, so two processes may round differently.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -34,6 +49,42 @@ from . import monodepth
 from .criterion import SetCriterion
 
 N_BUCKETS = 4  # (main / backbone LR group) x (no decay / decay)
+CUBLAS_DETERMINISTIC_CONFIGS = (":4096:8", ":16:8")
+
+
+def check_cublas_workspace_config() -> None:
+    """Raise unless CUBLAS_WORKSPACE_CONFIG is one of the values with which
+    cuBLAS runs deterministically. It has to be set before the process's
+    first cuBLAS call, so the error says to set it at launch."""
+    got = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    if got not in CUBLAS_DETERMINISTIC_CONFIGS:
+        raise RuntimeError(
+            f"a deterministic step on CUDA needs CUBLAS_WORKSPACE_CONFIG={CUBLAS_DETERMINISTIC_CONFIGS[0]} "
+            f"(or {CUBLAS_DETERMINISTIC_CONFIGS[1]}) in the environment before the process starts; got {got!r}")
+
+
+@contextlib.contextmanager
+def _algorithms(deterministic: bool):
+    """cuDNN and PyTorch algorithm choice for one step, restored after it.
+
+    Default: cuDNN's benchmark mode. cuDNN's heuristics give some fp32
+    convolutions of the motion decoders (3x3, 192 channels at 48x128) an FFT
+    algorithm ~500x slower than its implicit GEMM on an H100; a step's
+    shapes are static, so benchmarking each convolution once, on the first
+    step, is cheap. Deterministic: benchmark off, cuDNN's deterministic
+    algorithms, and `torch.use_deterministic_algorithms(True)`."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.benchmark, cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    cudnn.benchmark = not deterministic
+    if deterministic:
+        cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        cudnn.benchmark, cudnn.deterministic = saved[0], saved[1]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
 
 
 def bucket_index(name: str, p: torch.Tensor) -> int:
@@ -131,13 +182,18 @@ class Trainer:
     seg_batch: images (B, H, W, 3), task_tokens (B, 77), text_tokens
       (B, Q - n_ctx, 77), labels (B, N), masks (B, N, H/4, W/4), valid (B, N).
     seq_batch: images, prev_images, next_images (B, h, w, 3), K, inv_K (B, 4, 4).
+
+    `deterministic=True` takes every step with deterministic algorithms
+    only (see the module's docstring); the default is the fastest.
     """
 
-    def __init__(self, cfg: Config, device: Optional[Union[str, torch.device]] = None):
+    def __init__(self, cfg: Config, device: Optional[Union[str, torch.device]] = None,
+                 deterministic: bool = False):
         model_cfg = cfg.model if cfg.model.is_train else dataclasses.replace(cfg.model, is_train=True)
         self.cfg = cfg
         self.model_cfg = model_cfg
         self.device = device
+        self.deterministic = deterministic
         of = model_cfg.one_former
         self.criterion = SetCriterion(
             num_classes=model_cfg.sem_seg_head.num_classes,
@@ -227,24 +283,18 @@ class Trainer:
         (0-d tensors on the device; reading them waits for the step)."""
         model = state.model
         device = next(model.parameters()).device
+        if self.deterministic and device.type == "cuda":
+            check_cublas_workspace_config()
         if draws is None:
             if generator is None:
                 raise ValueError("give a generator or the draws")
             draws = self.make_draws(generator, seg_batch, seq_batch, device)
         model.train()
         model.zero_grad(set_to_none=True)
-        # cuDNN's heuristics give some fp32 convolutions of the motion
-        # decoders (3x3, 192 channels at 48x128) an FFT algorithm ~500x slower
-        # than its implicit GEMM on an H100; a step's shapes are static, so
-        # benchmarking each convolution once, on the first step, is cheap
-        benchmark = torch.backends.cudnn.benchmark
-        torch.backends.cudnn.benchmark = True
-        try:
+        with _algorithms(self.deterministic):
             losses = self.losses(state, seg_batch, seq_batch, draws)
             losses["loss"].backward()
-        finally:
-            torch.backends.cudnn.benchmark = benchmark
-        opt = self.optimizer.step(state.opt, dict(model.named_parameters()))
+            opt = self.optimizer.step(state.opt, dict(model.named_parameters()))
         state.step += 1
         metrics = {k: (v.detach() if torch.is_tensor(v) else torch.tensor(v)) for k, v in losses.items()}
         metrics.update(opt)
