@@ -9,7 +9,8 @@ takes full-width training steps, and reports per-kernel times.
 Phases, one JSON line each: device, build, k1_vs_plain, k1_class_chunks,
 k2_vs_plain, k3_vs_plain, serve, stages, profile, kernels_on_served_tensors,
 reference_small, sequence, sequence_stages, frame, predictor,
-sequence_reference_small, train, train_reference_small, train_deterministic.
+sequence_reference_small, train, train_reference_small, train_deterministic,
+eval.
 Then the card's name and power limit as nvidia-smi reports them, the
 {"kernels": [...]} line, and last {"ok": true, "device": {...}}. Any failure
 raises and the script exits non-zero without the last line. It needs a CUDA
@@ -25,6 +26,15 @@ edge cases (grad_out all zero, and one NaN in grad_out). The phase
 each one `Trainer(deterministic=True)` step at train_reference_small's sizes,
 and fails unless their losses, watched gradients and updated parameters are
 the same bytes.
+
+The phase `eval` drives the evaluation entry point, `evaluate_torch.main`,
+at full width on a synthetic Cityscapes / KITTI tree (4 images per
+dataset) with a reference-style .pth of random weights: the loaded state
+dict and a forward must be byte-equal to the writer's, the keys the model
+does not own exactly the planted ones, every scalar metric finite (a
+per-class IoU is NaN where the class is in neither GT nor prediction), K2
+launched 6 times per segmentation forward, and the same evaluators fed the
+GT must score PQ = mIoU = AP = 100.
 
 Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of HBM, 67 TFLOP/s
 of fp32 outside the tensor cores and 495 TFLOP/s of TF32 on them (at the
@@ -75,6 +85,13 @@ WATCHED = ("sem_seg_head.pixel_decoder.transformer.encoder.layers.0.self_attn.sa
 # the CUDA kernels of K3's source; ptxas must give each a 0-byte stack frame
 K3_KERNELS = ("msda_grad_out_absmax_kernel", "msda_fused_backward_kernel", "msda_grad_value_epilogue_kernel")
 DETERMINISTIC_CHILD = "--train-deterministic-child"
+EVAL_SEG_IMAGES = 4  # per synthetic dataset (reduced: the real val split holds 500 images)
+EVAL_KITTI = "kitti_synthetic_png"  # the synthetic KITTI drive, PNG frames
+EVAL_SEG_SET = "cityscapes_fine_panoptic_val"
+# checkpoint keys no port module owns, planted in the reference-style .pth
+EVAL_PLANTED = {"motion_decoder.layer1.0.weight": (256, 1536, 1, 1),
+                "motion_decoder.layer1.1.left.0.weight": (256, 256, 3, 3),
+                "text_encoder.transformer.resblocks.0.attn.in_proj_weight": (768, 256)}
 
 
 def emit(phase, **fields):
@@ -408,6 +425,191 @@ def fail_unless(phase, checks):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"{phase} checks failed: {failed}")
+
+
+def finite_metrics(results):
+    """(scalar metrics all finite, per-class IoU entries that are NaN: a
+    class absent from both GT and prediction)."""
+    scalars, nan_classes = [], 0
+    for group in results["seg_and_depth"].values():
+        for k, v in group.items():
+            if isinstance(v, list):
+                nan_classes += int(np.isnan(v).sum())
+            else:
+                scalars.append(float(v))
+    return bool(scalars) and bool(np.isfinite(scalars).all()), nan_classes
+
+
+def eval_summary(timings):
+    """Seconds per image by dataset, split into loader wait, predict and
+    the evaluators' process: each dataset's first item (which holds the
+    run's warm-up) apart from the mean of the rest (the steady state), the
+    instances and panoptic segments each image handed the evaluators, and
+    the loader-wait share of the whole run and of its steady state."""
+    keys = ("loader_wait_s", "predict_s", "process_s")
+    by_set = {}
+    for t in timings:
+        by_set.setdefault(t["dataset"], []).append(t)
+    per_set = {name: {"first": {k: ts[0][k] for k in keys},
+                      "steady_mean": {k: float(np.mean([t[k] for t in ts[1:]])) for k in keys} if ts[1:] else None,
+                      "per_image": {k: [t[k] for t in ts] for k in (*keys, "instances", "segments") if k in ts[0]}}
+               for name, ts in by_set.items()}
+
+    def seconds_and_wait_share(ts):
+        total = sum(t[k] for t in ts for k in keys)
+        return total, sum(t["loader_wait_s"] for t in ts) / max(total, 1e-12)
+
+    steady = [t for ts in by_set.values() for t in ts[1:]]
+    total, share = seconds_and_wait_share(timings)
+    steady_total, steady_share = seconds_and_wait_share(steady)
+    return {"per_dataset": per_set, "images": len(timings), "seconds": total,
+            "seconds_per_image": total / max(len(timings), 1), "loader_wait_share": share,
+            "steady_images": len(steady), "steady_seconds_per_image": steady_total / max(len(steady), 1),
+            "steady_loader_wait_share": steady_share}
+
+
+def eval_phase(dev, smi):
+    """The evaluation entry point at full width on the card: a synthetic
+    Cityscapes / KITTI tree in the datasets' layouts (EVAL_SEG_IMAGES per dataset:
+    val at 1024x2048 with panoptic, trainId and 16-bit instance PNGs;
+    cityscapes_crop_test frames at 1024x2048 with GT depth; KITTI frames at
+    375x1242 with calibration and velodyne scans), a reference-style .pth
+    of a random Config().model (class head x8) with planted keys the model
+    does not own, `evaluate_torch.main` with --task panoptic, then with
+    --task semantic and TEST.AUG (6 scales x flip) on 1 image, and the
+    same evaluators fed the GT; the panoptic run once more under
+    torch.profiler. Returns the K1 and K2 launches of the two runs."""
+    import tempfile
+
+    import evaluate_torch
+    from uni_encoder_tpu_torch.config import Config
+    from uni_encoder_tpu_torch.data import image_io, synthetic
+    from uni_encoder_tpu_torch.data.build import build_test_loader
+    from uni_encoder_tpu_torch.data.mappers import TestMapper
+    from uni_encoder_tpu_torch.data.tokenizer import tokenize_task
+    from uni_encoder_tpu_torch.engine import checkpoint as ckpt
+    from uni_encoder_tpu_torch.inference.fused_postprocess import fused_postprocess_cuda
+    from uni_encoder_tpu_torch.models.oneformer import UniEncoder
+    from uni_encoder_tpu_torch.ops.ms_deform_attn import ms_deform_attn_fused_cuda
+
+    t_phase = time.perf_counter()
+    importable = {m: subprocess.run([sys.executable, "-c", f"import {m}"], capture_output=True,
+                                    timeout=120).returncode == 0 for m in ("PIL", "cv2")}
+    cfg = Config()
+    enc_layers = cfg.model.sem_seg_head.transformer_enc_layers
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        synthetic.write_cityscapes_val(root, EVAL_SEG_IMAGES, (SEG_H, SEG_W))
+        synthetic.write_cityscapes_sequence(root, EVAL_SEG_IMAGES, (SEG_H, SEG_W))
+        synthetic.register_kitti(root, EVAL_KITTI, synthetic.write_kitti(root, EVAL_SEG_IMAGES))
+        fixture_s = time.perf_counter() - t0
+        frame = os.path.join(root, "cityscapes/leftImg8bit/val", synthetic.CITY,
+                             f"{synthetic.CITY}_000000_000019_leftImg8bit.png")
+        read_ms, lanczos_ms = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            rgb = image_io.read_png(frame)
+            read_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            image_io.resize_lanczos(rgb, (SEQ_H, SEQ_W))
+            lanczos_ms.append((time.perf_counter() - t0) * 1e3)
+
+        # ---- a reference-style .pth of random full-width weights
+        writer = UniEncoder(cfg.model, device=dev, seed=0)
+        with torch.no_grad():
+            writer.predictor.class_embed.weight.mul_(8.0)
+        saved = {k: v.detach().cpu().clone() for k, v in writer.state_dict().items()}
+        g = torch.Generator().manual_seed(5)
+        planted = {k: torch.randn(*shape, generator=g) for k, shape in EVAL_PLANTED.items()}
+        pth = os.path.join(root, "model_final.pth")
+        t0 = time.perf_counter()
+        torch.save({"model": {**saved, **planted}}, pth)
+        save_s = time.perf_counter() - t0
+        pth_mb = os.path.getsize(pth) / 1e6
+        t0 = time.perf_counter()
+        ckpt.load_reference_state(pth)
+        read_pth_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded, report = evaluate_torch.build_model(cfg, pth, dev)
+        torch.cuda.synchronize()
+        build_model_s = time.perf_counter() - t0
+        own = loaded.state_dict()
+        rng = np.random.RandomState(4)
+        img = torch.from_numpy(rng.randn(1, 256, 512, 3).astype(np.float32)).to(dev)
+        tokens = torch.tensor([tokenize_task(TASK)], dtype=torch.int64, device=dev)
+        cur, prev = (torch.from_numpy(rng.randn(1, SEQ_H, SEQ_W, 3).astype(np.float32)).to(dev) for _ in range(2))
+        outs = []
+        with torch.inference_mode():
+            for m in (writer, loaded):
+                outs.append({**m.forward_segmentation(img, tokens), **m.forward_sequence(cur, prev)})
+        keys = ("pred_logits", "pred_masks", "disp", "motion_mask", "complete_flow", "cam_T_cam")
+        load_checks = {
+            "state_dict_byte_equal": sorted(own) == sorted(saved) and all(
+                own[k].cpu().numpy().tobytes() == saved[k].numpy().tobytes() for k in saved),
+            "forward_byte_equal": all(torch.equal(outs[0][k], outs[1][k]) for k in keys),
+            "unused_exactly_the_planted_keys": report.unused == sorted(EVAL_PLANTED),
+        }
+        del writer, loaded, own, outs
+        torch.cuda.empty_cache()
+
+        # ---- the entry point: panoptic, then semantic with TEST.AUG on 1 image
+        common = ["--weights", pth, "--datasets-root", root]
+        argvs = {"panoptic": common + ["--task", "panoptic", f"datasets.depth_test=[cityscapes_crop_test,{EVAL_KITTI}]",
+                                       f"datasets.seg_test_panoptic=[{EVAL_SEG_SET}]"],
+                 "semantic": common + ["--task", "semantic", "--max-images", "1", "model.test.aug_enabled=true",
+                                       "datasets.depth_test=[]", f"datasets.seg_test_semantic=[{EVAL_SEG_SET}]"]}
+        runs = {}
+        for task, argv in argvs.items():
+            reset_launches(fused_postprocess_cuda, ms_deform_attn_fused_cuda)
+            timings = []
+            t0 = time.perf_counter()
+            results = evaluate_torch.main(argv, timings=timings)
+            torch.cuda.synchronize()
+            runs[task] = {"results": results, "wall_s": time.perf_counter() - t0, "timings": timings,
+                          "launches": {"k1": fused_postprocess_cuda.launches, "k2": ms_deform_attn_fused_cuda.launches}}
+            torch.cuda.empty_cache()
+        # the panoptic run once more under torch.profiler: how much of it the card works
+        prof = profile_device(lambda: evaluate_torch.main(argvs["panoptic"]), 1, runs["panoptic"]["wall_s"] * 1e3)
+        tta = cfg.model.test
+        seg_forwards = {"panoptic": EVAL_SEG_IMAGES, "semantic": len(tta.aug_min_sizes) * (2 if tta.aug_flip else 1)}
+        checks = dict(load_checks)
+        nan_classes = {}
+        for task, r in runs.items():
+            checks[f"{task}_metrics_finite"], nan_classes[task] = finite_metrics(r["results"])
+            checks[f"{task}_k2_launches"] = r["launches"]["k2"] == enc_layers * seg_forwards[task]
+            checks[f"{task}_k1_launches"] = r["launches"]["k1"] == 0  # the Predictor's post-process is unfused
+        checks["panoptic_groups"] = sorted(runs["panoptic"]["results"]["seg_and_depth"]) == sorted(
+            ["cityscapes_crop_test/depth_error", f"{EVAL_KITTI}/depth_error", f"{EVAL_SEG_SET}/panoptic_seg",
+             f"{EVAL_SEG_SET}/sem_seg", f"{EVAL_SEG_SET}/segm"])
+
+        # ---- the same evaluators fed the GT, on the same full-size files
+        gt_eval = evaluate_torch.build_evaluator(EVAL_SEG_SET, "panoptic")
+        gt_eval.reset()
+        for item in build_test_loader(EVAL_SEG_SET, TestMapper(task="panoptic")):
+            gt_eval.process([item], [synthetic.gt_as_prediction(item)])
+        gt = gt_eval.evaluate()
+        perfect = {"PQ": gt["panoptic_seg"]["PQ"], "mIoU": gt["sem_seg"]["mIoU"], "AP": gt["segm"]["AP"]}
+        checks["gt_fed_back_perfect"] = all(abs(v - 100.0) < 1e-9 for v in perfect.values())
+        checks["no_pil_or_cv2_imported"] = not any(m in sys.modules for m in ("PIL", "cv2"))
+
+    summaries = {task: eval_summary(r["timings"]) for task, r in runs.items()}
+    emit("eval", datasets={"cityscapes_val": [EVAL_SEG_IMAGES, SEG_H, SEG_W],
+                           "cityscapes_crop_test": [EVAL_SEG_IMAGES, SEG_H, SEG_W],
+                           "kitti": [EVAL_SEG_IMAGES, *synthetic.KITTI_HW]},
+         dtype=cfg.model.dtype, tf32=False, pil_importable=importable["PIL"], cv2_importable=importable["cv2"],
+         fixture_s=fixture_s, read_png_ms=read_ms, resize_lanczos_ms=lanczos_ms,
+         pth_mb=pth_mb, pth_save_s=save_s, pth_read_s=read_pth_s,
+         build_model_with_weights_s=build_model_s, unused=report.unused,
+         runs={task: {"wall_s": r["wall_s"], "launches": r["launches"], "timing": summaries[task],
+                      "metrics": r["results"]["seg_and_depth"]} for task, r in runs.items()},
+         panoptic_run_profiled={"kernel_ms": prof["kernel_ms"], "traced_wall_ms": prof["traced_wall_ms"],
+                                "busy_share_traced": prof["busy_share_traced"],
+                                "busy_share_untraced": prof["busy_share_untraced"],
+                                "kernel_launches": prof["kernel_launches"], "top_kernels_ms": prof["top_kernels_ms"]},
+         nan_iou_classes=nan_classes, gt_fed_back=perfect, checks=checks,
+         seconds=time.perf_counter() - t_phase, card=smi)
+    fail_unless("eval", checks)
+    return {task: r["launches"] for task, r in runs.items()}
 
 
 def main():
@@ -1038,10 +1240,15 @@ def main():
     for path in paths:
         os.remove(path)
 
+    # ---------------- the evaluation entry point on synthetic full-size data
+    # (last: the shape-keyed device constants of its TTA scales stay cached)
+    eval_launches = eval_phase(dev, smi)
+
     print(smi, flush=True)
     rows = []
     # K1 and K2 launches are the served requests' (phase serve), K3's the
-    # timed training steps' (phase train)
+    # timed training steps' (phase train); eval_launches those of the two
+    # evaluate_torch runs (phase eval)
     launches["k3"] = train_launches["k3"]
     for key, name, source, replaces in (
         ("k1", "fused_multitask_inference", "uni_encoder_tpu_torch/kernels/csrc/fused_postprocess.cu",
@@ -1053,7 +1260,9 @@ def main():
     ):
         r = results[key]
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                     "launches": launches[key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "launches": launches[key],
+                     "eval_launches": {task: n.get(key, 0) for task, n in eval_launches.items()},
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": None,
                      **{k: r[k] for k in ("function_ms", "stack_frame_bytes", "deterministic") if k in r}})

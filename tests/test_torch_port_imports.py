@@ -1,8 +1,10 @@
-"""The port imports neither jax/flax nor anything of the JAX package.
+"""The port imports neither jax/flax nor anything of the JAX package, and
+neither PIL nor cv2 when it is imported.
 
 tests/conftest.py imports jax for every test, so the import check runs in a
 fresh interpreter; a source scan backs it up for imports that only run
-inside functions.
+inside functions. The port's sources, `evaluate_torch.py` and
+`chip_smoke.py` are checked.
 """
 
 import os
@@ -19,7 +21,8 @@ import uni_encoder_tpu_torch as port
 for m in pkgutil.walk_packages(port.__path__, "uni_encoder_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "jaxlib", "uni_encoder_tpu"))
+import evaluate_torch
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "jaxlib", "uni_encoder_tpu", "PIL", "cv2"))
 print(bad)
 sys.exit(1 if bad else 0)
 """
@@ -38,6 +41,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "evaluate_torch.py")
 
 
 def test_source_scan_finds_no_jax_package_import():
@@ -52,15 +56,34 @@ def test_source_scan_finds_no_jax_package_import():
     assert not found, found
 
 
+def test_source_scan_finds_no_module_level_pil_or_cv2_import():
+    """PIL is imported only inside the JPEG reader, cv2 nowhere: PNG files
+    and resizes go through `data/image_io.py`."""
+    top_level = re.compile(r"^(from|import)\s+(PIL|cv2)\b", re.M)
+    anywhere = re.compile(r"^\s*(from|import)\s+(PIL|cv2)\b", re.M)
+    found = []
+    for path in _sources():
+        with open(path) as f:
+            src = f.read()
+        rel = os.path.relpath(path, REPO)
+        found += [f"{rel}: {m.group(0).strip()}" for m in top_level.finditer(src)]
+        if rel != os.path.join("uni_encoder_tpu_torch", "data", "image_io.py"):
+            found += [f"{rel}: {m.group(0).strip()}" for m in anywhere.finditer(src)]
+    assert not found, found
+
+
 def test_walk_covers_the_training_modules():
     """The import check above walks the training slice's modules too (the
-    training package, the text encoder, the backward kernel's source)."""
+    training package, the text encoder, the backward kernel's source), and
+    the evaluation path's (checkpoints, data, evaluators, host helpers)."""
     import pkgutil
 
     import uni_encoder_tpu_torch as port
 
     names = {m.name for m in pkgutil.walk_packages(port.__path__, "uni_encoder_tpu_torch.")}
     for mod in ("training.train_step", "training.criterion", "training.matcher", "training.monodepth",
-                "models.text_transformer", "ops.ms_deform_attn", "engine.convert"):
+                "models.text_transformer", "ops.ms_deform_attn", "engine.convert", "engine.checkpoint",
+                "engine.tta", "data.image_io", "data.mappers", "data.build", "data.datasets.kitti",
+                "evaluation.cityscapes", "evaluation.kitti", "native"):
         assert f"uni_encoder_tpu_torch.{mod}" in names, mod
     assert os.path.exists(os.path.join(PORT, "kernels", "csrc", "ms_deform_attn_backward.cu"))

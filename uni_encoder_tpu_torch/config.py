@@ -11,13 +11,15 @@ configs/**/*.yaml. Differences by design:
   * frozen dataclasses (hashable, safe to share between modules);
   * `_base_` inheritance + dotted-path CLI overrides (`a.b.c=value`);
   * no `!!python/object/apply:eval` — computed lists are written out;
-  * `yaml` is imported inside the loaders only, so importing this module
-    does not need PyYAML.
+  * `yaml` is imported inside the YAML loader only, so importing this
+    module, and `a.b.c=value` overrides (`parse_override`), do not need
+    PyYAML.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from dataclasses import dataclass, field, fields, is_dataclass
 from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
@@ -298,14 +300,82 @@ def load_yaml_tree(path: str) -> Dict[str, Any]:
     return data
 
 
-def _set_dotted(tree: Dict, dotted: str, value: Any) -> None:
-    import yaml
+# PyYAML's implicit resolvers (YAML 1.1) for the scalars an override holds.
+_YAML_WORDS = {
+    **dict.fromkeys(("yes", "Yes", "YES", "true", "True", "TRUE", "on", "On", "ON"), True),
+    **dict.fromkeys(("no", "No", "NO", "false", "False", "FALSE", "off", "Off", "OFF"), False),
+    **dict.fromkeys(("", "~", "null", "Null", "NULL"), None),
+}
+_YAML_INT = re.compile(r"[-+]?(?:0|[1-9][0-9_]*)")
+_YAML_FLOAT = re.compile(r"[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?|\.[0-9_]+(?:[eE][-+][0-9]+)?")
+_YAML_SPECIAL_FLOAT = {
+    **dict.fromkeys((".inf", ".Inf", ".INF", "+.inf", "+.Inf", "+.INF"), float("inf")),
+    **dict.fromkeys(("-.inf", "-.Inf", "-.INF"), float("-inf")),
+    **dict.fromkeys((".nan", ".NaN", ".NAN"), float("nan")),
+}
+# Plain scalars that PyYAML reads as something this parser does not build:
+# other integer bases, sexagesimal numbers, timestamps, merge / value keys.
+_YAML_UNSUPPORTED = re.compile(
+    r"[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?0x[0-9a-fA-F_]+|[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?"
+    r"|[0-9]{4}-[0-9]{1,2}-[0-9]{1,2}.*|<<|="
+)
 
+
+def parse_override(text: str) -> Any:
+    """The value of a `a.b.c=value` override, as `yaml.safe_load(text)`
+    gives it, without PyYAML (absent on the GPU machine). It reads a plain
+    or quoted scalar and a flow sequence `[x, y]` of such values; PyYAML's
+    YAML 1.1 rules decide booleans (also yes/no/on/off), null, integers and
+    floats (`1e-4` has no dot, so it stays a string, as in PyYAML). Anything
+    else (a flow mapping, anchors, tags, escapes, other integer bases,
+    timestamps) raises ValueError rather than being read differently."""
+    text = text.strip()
+    if text.startswith("["):
+        if not text.endswith("]"):
+            raise ValueError(f"unterminated flow sequence in override {text!r}")
+        items, depth, quote, start = [], 0, None, 1
+        for i, ch in enumerate(text[1:-1], 1):
+            if quote:
+                quote = None if ch == quote else quote
+            elif ch in "'\"":
+                quote = ch
+            elif ch in "[]":
+                depth += 1 if ch == "[" else -1
+            elif ch == "," and depth == 0:
+                items.append(text[start:i])
+                start = i + 1
+        items.append(text[start:-1])
+        if items[-1].strip() == "":  # `[]` and a trailing comma
+            items.pop()
+        if any(x.strip() == "" for x in items):
+            raise ValueError(f"empty item in override {text!r}")
+        return [parse_override(x) for x in items]
+    if text[:1] in ("'", '"'):
+        inner = text[1:-1]
+        if len(text) < 2 or text[-1] != text[0] or text[0] in inner or "\\" in inner:
+            raise ValueError(f"unsupported quoted string in override {text!r}")
+        return inner
+    if (text[:1] and text[:1] in "{}]&*!|>%@`#,") or text[:2] in ("- ", "? ", ": ") \
+            or text in ("-", "?") or text.endswith(":") or ": " in text or " #" in text \
+            or "\t" in text or _YAML_UNSUPPORTED.fullmatch(text):
+        raise ValueError(f"override {text!r} is not a YAML scalar or flow sequence this parser reads")
+    if text in _YAML_WORDS:
+        return _YAML_WORDS[text]
+    if _YAML_INT.fullmatch(text):
+        return int(text.replace("_", ""))
+    if _YAML_FLOAT.fullmatch(text):
+        return float(text.replace("_", ""))
+    if text in _YAML_SPECIAL_FLOAT:
+        return _YAML_SPECIAL_FLOAT[text]
+    return text
+
+
+def _set_dotted(tree: Dict, dotted: str, value: Any) -> None:
     keys = dotted.split(".")
     node = tree
     for k in keys[:-1]:
         node = node.setdefault(k, {})
-    node[keys[-1]] = yaml.safe_load(value) if isinstance(value, str) else value
+    node[keys[-1]] = parse_override(value) if isinstance(value, str) else value
 
 
 def load_config(path: Optional[str] = None, overrides: Optional[list] = None) -> Config:
