@@ -10,7 +10,7 @@ Phases, one JSON line each: device, build, k1_vs_plain, k1_class_chunks,
 k2_vs_plain, k3_vs_plain, serve, stages, profile, kernels_on_served_tensors,
 reference_small, sequence, sequence_stages, frame, predictor,
 sequence_reference_small, train, train_reference_small, train_deterministic,
-eval.
+train_entry, eval.
 Then the card's name and power limit as nvidia-smi reports them, the
 {"kernels": [...]} line, and last {"ok": true, "device": {...}}. Any failure
 raises and the script exits non-zero without the last line. It needs a CUDA
@@ -26,6 +26,17 @@ edge cases (grad_out all zero, and one NaN in grad_out). The phase
 each one `Trainer(deterministic=True)` step at train_reference_small's sizes,
 and fails unless their losses, watched gradients and updated parameters are
 the same bytes.
+
+The phase `train_entry` drives the training entry point, `train_torch.main`,
+on the production Swin-T config (configs/cityscapes_swin_unified.yaml, read
+without PyYAML) at full width and depth: 4 iterations of 2 items per
+modality from a synthetic tree of 4 full-size segmentation items and 4
+frame triples, through the train mappers on the host. It fails unless the
+4 metrics.json records carry train.py's keys with finite losses, K2 and K3
+ran 6 times per step and K1 never, the checkpoints of steps 2 and 4 were
+written, and `evaluate_torch.build_model` loads the last one byte for byte,
+with exactly the training-only keys (text encoder, text projector, prompt
+context, logit scale) left unused.
 
 The phase `eval` drives the evaluation entry point, `evaluate_torch.main`,
 at full width on a synthetic Cityscapes / KITTI tree (4 images per
@@ -85,6 +96,13 @@ WATCHED = ("sem_seg_head.pixel_decoder.transformer.encoder.layers.0.self_attn.sa
 # the CUDA kernels of K3's source; ptxas must give each a 0-byte stack frame
 K3_KERNELS = ("msda_grad_out_absmax_kernel", "msda_fused_backward_kernel", "msda_grad_value_epilogue_kernel")
 DETERMINISTIC_CHILD = "--train-deterministic-child"
+TRAIN_ENTRY_CONFIG = "configs/cityscapes_swin_unified.yaml"  # the production Swin-T config, read without PyYAML
+TRAIN_ENTRY_ITERS, TRAIN_ENTRY_ITEMS = 4, 4  # iterations (of 90 000); synthetic items per training split
+# the state-dict keys only a model built with is_train owns: the text encoder
+# and its projector, the prompt context and the contrastive logit scale
+TRAINING_ONLY_KEYS = ("text_encoder.", "text_projector.", "prompt_ctx.", "logit_scale")
+METRICS_JSON_KEYS = {"iteration", "loss", "loss_seg", "loss_monodepth", "loss_ce", "loss_mask", "loss_dice",
+                     "data_time", "img_per_s"}  # train.py's records
 EVAL_SEG_IMAGES = 4  # per synthetic dataset (reduced: the real val split holds 500 images)
 EVAL_KITTI = "kitti_synthetic_png"  # the synthetic KITTI drive, PNG frames
 EVAL_SEG_SET = "cityscapes_fine_panoptic_val"
@@ -610,6 +628,122 @@ def eval_phase(dev, smi):
          seconds=time.perf_counter() - t_phase, card=smi)
     fail_unless("eval", checks)
     return {task: r["launches"] for task, r in runs.items()}
+
+
+def train_entry_phase(dev, smi):
+    """The training entry point at full width and depth: a synthetic tree of
+    TRAIN_ENTRY_ITEMS 1024x2048 segmentation items and as many 3-frame
+    sequence items under build/, then `train_torch.main` on the production
+    Swin-T config (read by the port's YAML reader) for TRAIN_ENTRY_ITERS
+    iterations of TRAIN_BATCH per modality, logging every iteration and saving
+    every 2; the checkpoint loaded by `evaluate_torch.build_model`. The
+    peak device memory is reported per iteration (the first holds the
+    model's initialisation, and in a process that has not run these shapes
+    yet, cuDNN's benchmarking) and over the run. Returns the kernels'
+    launches over the run."""
+    import evaluate_torch
+    import train_torch
+    from uni_encoder_tpu_torch import kernels
+    from uni_encoder_tpu_torch.config import load_config
+    from uni_encoder_tpu_torch.data import datasets, synthetic
+    from uni_encoder_tpu_torch.data.catalog import DatasetCatalog
+    from uni_encoder_tpu_torch.data.tokenizer import tokenize_task
+    from uni_encoder_tpu_torch.data.train_mappers import build_train_mappers
+    from uni_encoder_tpu_torch.inference.fused_postprocess import fused_postprocess_cuda
+    from uni_encoder_tpu_torch.ops.ms_deform_attn import ms_deform_attn_fused_backward_cuda, ms_deform_attn_fused_cuda
+
+    t_phase = time.perf_counter()
+    cfg_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), TRAIN_ENTRY_CONFIG)
+    work = os.path.join(os.path.dirname(kernels.BUILD_DIR), "train_entry")
+    root, out = os.path.join(work, "data"), os.path.join(work, "run")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        synthetic.write_cityscapes_train(root, TRAIN_ENTRY_ITEMS, (SEG_H, SEG_W))
+        tree_s = time.perf_counter() - t0
+        cfg = load_config(cfg_path)
+
+        # host ms by stage: the first two items of each kind (a process's
+        # first item also builds build/native/ with g++ when it is missing,
+        # and loads the tokenizer if no earlier phase did)
+        datasets.register_all(root)
+        seg_mapper, seq_mapper = build_train_mappers(cfg)
+        stage_ms = {}
+        for kind, mapper, name in (("segmentation", seg_mapper, "cityscapes_fine_panoptic_train"),
+                                   ("sequence", seq_mapper, "cityscapes_sequence_crop_full_sequence_train")):
+            stage_ms[kind] = []
+            for item in DatasetCatalog.get(name)[:2]:
+                mapper.stage_s.clear()
+                mapped = mapper(item)
+                stage_ms[kind].append({k: v * 1e3 for k, v in mapper.stage_s.items()})
+                if kind == "segmentation":
+                    stage_ms[kind][-1].update(task=mapped["task"], target_count=int(mapped["valid"].sum()))
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(fused_postprocess_cuda, ms_deform_attn_fused_cuda, ms_deform_attn_fused_backward_cuda)
+        timings = []
+        t0 = time.perf_counter()
+        state = train_torch.main(["--config", cfg_path, "--datasets-root", root, "--output-dir", out,
+                                  "--max-iter", str(TRAIN_ENTRY_ITERS), "--batch", str(TRAIN_BATCH),
+                                  "--log-period", "1", "--checkpoint-period", "2"], timings=timings)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {"k1": fused_postprocess_cuda.launches, "k2": ms_deform_attn_fused_cuda.launches,
+                    "k3": ms_deform_attn_fused_backward_cuda.launches}
+        peak_gb = max(t["peak_gb"] for t in timings)
+        with open(os.path.join(out, "metrics.json")) as f:
+            records = [json.loads(line) for line in f if line.strip()]
+        with open(os.path.join(out, "last_checkpoint")) as f:
+            pointer = f.read().strip()
+
+        # the checkpoint through the evaluation entry point's loader
+        trained = state.model.state_dict()
+        t0 = time.perf_counter()
+        model, report = evaluate_torch.build_model(cfg, out, dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        own = model.state_dict()
+        training_only = sorted(set(trained) - set(own))
+        rng = np.random.RandomState(6)
+        img = torch.from_numpy(rng.randint(0, 256, (1, *cfg.input.seg_crop_train, 3)).astype(np.float32)).to(dev)
+        tokens = torch.tensor([tokenize_task(TASK)], dtype=torch.int64, device=dev)
+        with torch.inference_mode():
+            fwd = model.forward_segmentation(img, tokens)
+        enc_layers = cfg.model.sem_seg_head.transformer_enc_layers
+        checks = {
+            "losses_finite": len(records) > 0 and all(
+                np.isfinite(r[k]) for r in records for k in ("loss", "loss_seg", "loss_monodepth")),
+            "metrics_records": len(records) == TRAIN_ENTRY_ITERS and all(set(r) == METRICS_JSON_KEYS for r in records),
+            "step_count": state.step == TRAIN_ENTRY_ITERS and state.opt.count == TRAIN_ENTRY_ITERS,
+            "k1_launches": launches["k1"] == 0,
+            "k2_launches": launches["k2"] == TRAIN_ENTRY_ITERS * enc_layers,
+            "k3_launches": launches["k3"] == TRAIN_ENTRY_ITERS * enc_layers,
+            "checkpoints": all(os.path.isfile(os.path.join(out, f"step_{n}.pt")) for n in (2, 4))
+            and pointer == "step_4.pt",
+            "config_read_without_pyyaml": "yaml" not in sys.modules,
+            "loaded_byte_equal": all(own[k].cpu().numpy().tobytes() == trained[k].cpu().numpy().tobytes()
+                                     for k in own),
+            "unused_exactly_the_training_only_keys": report.unused == training_only and bool(training_only)
+            and all(k.startswith(TRAINING_ONLY_KEYS) for k in training_only),
+            "loaded_forward_finite": all(bool(torch.isfinite(fwd[k]).all()) for k in ("pred_logits", "pred_masks")),
+        }
+        ckpt_mb = os.path.getsize(os.path.join(out, pointer)) / 1e6
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    iterations = [{"data_ms": t["data_s"] * 1e3, "step_ms": t["step_s"] * 1e3,
+                   "data_share": t["data_s"] / (t["data_s"] + t["step_s"]), "img_per_s": r["img_per_s"],
+                   "checkpoint_s": t["checkpoint_s"], "peak_gb": t["peak_gb"], "loss": r["loss"]}
+                  for t, r in zip(timings, records)]
+    emit("train_entry", config=TRAIN_ENTRY_CONFIG, batch_per_modality=TRAIN_BATCH, iterations=TRAIN_ENTRY_ITERS,
+         items_per_split=TRAIN_ENTRY_ITEMS, image=[SEG_H, SEG_W], crop=list(cfg.input.seg_crop_train),
+         frames=list(cfg.input.depth_hw_train), per_iteration=iterations,
+         stage_ms=stage_ms, peak_memory_gb=peak_gb, tree_write_s=tree_s, run_s=run_s, checkpoint_mb=ckpt_mb,
+         build_model_with_checkpoint_s=load_s, launches=launches,
+         training_only_keys={p: sum(k.startswith(p) for k in training_only) for p in TRAINING_ONLY_KEYS},
+         metrics=records, checks=checks, seconds=time.perf_counter() - t_phase, card=smi)
+    fail_unless("train_entry", checks)
+    return launches
 
 
 def main():
@@ -1240,6 +1374,12 @@ def main():
     for path in paths:
         os.remove(path)
 
+    # ---------------- the training entry point: the production config, full
+    # width and depth, on a synthetic full-size tree (the train phase's state
+    # is gone: two of its 52 GB training states do not fit the card)
+    train_entry_launches = train_entry_phase(dev, smi)
+    torch.cuda.empty_cache()
+
     # ---------------- the evaluation entry point on synthetic full-size data
     # (last: the shape-keyed device constants of its TTA scales stay cached)
     eval_launches = eval_phase(dev, smi)
@@ -1247,7 +1387,8 @@ def main():
     print(smi, flush=True)
     rows = []
     # K1 and K2 launches are the served requests' (phase serve), K3's the
-    # timed training steps' (phase train); eval_launches those of the two
+    # timed training steps' (phase train); train_entry_launches those of the
+    # train_torch run (phase train_entry), eval_launches those of the two
     # evaluate_torch runs (phase eval)
     launches["k3"] = train_launches["k3"]
     for key, name, source, replaces in (
@@ -1261,6 +1402,7 @@ def main():
         r = results[key]
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[key],
+                     "train_entry_launches": train_entry_launches[key],
                      "eval_launches": {task: n.get(key, 0) for task, n in eval_launches.items()},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -91,13 +91,27 @@ SCALED_CONFIG = f"""
 model:
   backbone:
     name: swin
-    swin: {{embed_dim: {common.EMBED}, depths: {list(common.DEPTHS)}, num_heads: {list(common.HEADS)}}}
-  sem_seg_head: {{num_classes: 19, convs_dim: {common.CONV_DIM}, mask_dim: {common.CONV_DIM},
-                  transformer_enc_layers: {common.ENC_LAYERS}}}
-  one_former: {{num_object_queries: {common.NQ}, dec_layers: {common.DEC_LAYERS}, class_dec_layers: 2,
-               dim_feedforward: {common.DFF}, hidden_dim: {common.CONV_DIM}, nheads: {common.NHEADS}}}
-  test: {{detections_per_image: {common.NQ * 19}}}
-input: {{seg_min_size_test: {VAL_HW[0]}, seg_max_size_test: {VAL_HW[1]}}}
+    swin:
+      embed_dim: {common.EMBED}
+      depths: {list(common.DEPTHS)}
+      num_heads: {list(common.HEADS)}
+  sem_seg_head:
+    num_classes: 19
+    convs_dim: {common.CONV_DIM}
+    mask_dim: {common.CONV_DIM}
+    transformer_enc_layers: {common.ENC_LAYERS}
+  one_former:
+    num_object_queries: {common.NQ}
+    dec_layers: {common.DEC_LAYERS}
+    class_dec_layers: 2
+    dim_feedforward: {common.DFF}
+    hidden_dim: {common.CONV_DIM}
+    nheads: {common.NHEADS}
+  test:
+    detections_per_image: {common.NQ * 19}
+input:
+  seg_min_size_test: {VAL_HW[0]}
+  seg_max_size_test: {VAL_HW[1]}
 datasets:
   depth_test: [cityscapes_crop_test, {KITTI_NAME}]
   seg_test_panoptic: [cityscapes_fine_panoptic_val]

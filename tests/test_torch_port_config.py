@@ -1,13 +1,15 @@
-"""The port's config overrides against PyYAML and the JAX package.
+"""The port's config reading against PyYAML and the JAX package.
 
-The port parses `a.b.c=value` overrides without PyYAML (`config.parse_override`);
-each value must come out as `yaml.safe_load` gives it, anything the parser
-does not read must raise, and `load_config` must build the same Config as
-the JAX package's on the same file and overrides.
+The port reads config files (`config.parse_block_yaml`) and `a.b.c=value`
+overrides (`config.parse_override`) without PyYAML; each must come out as
+`yaml.safe_load` gives it, anything the readers do not read must raise, and
+`load_config` must build the same Config as the JAX package's on the same
+file and overrides, also with PyYAML unimportable.
 """
 
 import math
 import os
+import sys
 
 import pytest
 import torch
@@ -93,3 +95,62 @@ def _same_tree(a, b):
 def test_load_config_refuses_a_flow_mapping():
     with pytest.raises(ValueError):
         load_config(None, ["model.test={task: semantic}"])
+
+
+# ------------------------------------------------- config files without PyYAML
+CONFIG_FILES = sorted(f for f in os.listdir(CONFIGS) if f.endswith(".yaml"))
+
+# Block YAML the reader takes, with PyYAML's reading of each.
+BLOCK_SUPPORTED = [
+    "", "# only a comment\n", "a: 1\n",
+    "a:\n  b: [1, 2]\n  c:\n  - x\n  - [1, [2, 3]]\nd: 'q # r'  # c\n",
+    "a:\n- 1\n- 2\nb: ~\n",
+    "a:\n    b: 1\n    c:\n        d: yes\ne: 1.5e+3\n",
+    "a: http://x/y#z\n", "a:\n  -   [1]\n", "a: -1\nb: .5\nc: 1e-4\n", "x:\n# c\n  y: 1\n",
+    "a:\n  b:\nc: 2\n", "a: 'x: y'\n", "_base_: other.yaml\nsolver:\n  amp: false\n",
+]
+
+# Block YAML PyYAML reads but the reader refuses.
+BLOCK_UNSUPPORTED = [
+    "a: &x 1\n", "a: *x\n", "a: {b: 1}\n", "a: |\n  x\n", "a: >\n  x\n", "a: b\n  c\n", "a:\n\tb: 1\n",
+    "- 1\n", "a:\n  - b: 1\n", "---\na: 1\n", "a: 1\na: 2\n", "'a': 1\n", "a: !!str 1\n",
+    "a:\n  b: 1\n c: 2\n", "a: [1,\n  2]\n", "? a\n", "a:b\n", "a: 'x\n  y'\n", "a:\n  -\n    - 1\n",
+    "%YAML 1.1\na: 1\n", "1: a\n",
+]
+
+
+@pytest.mark.parametrize("name", CONFIG_FILES)
+def test_block_yaml_reads_every_config_as_pyyaml(name):
+    from uni_encoder_tpu_torch.config import parse_block_yaml
+
+    with open(os.path.join(CONFIGS, name)) as f:
+        text = f.read()
+    assert _same_tree(parse_block_yaml(text, name), yaml.safe_load(text))
+
+
+@pytest.mark.parametrize("text", BLOCK_SUPPORTED)
+def test_block_yaml_matches_pyyaml(text):
+    from uni_encoder_tpu_torch.config import parse_block_yaml
+
+    assert _same_tree(parse_block_yaml(text), yaml.safe_load(text) or {})
+
+
+@pytest.mark.parametrize("text", BLOCK_UNSUPPORTED)
+def test_block_yaml_refuses_what_it_does_not_read(text):
+    from uni_encoder_tpu_torch.config import parse_block_yaml
+
+    with pytest.raises(ValueError):
+        parse_block_yaml(text)
+
+
+@pytest.mark.parametrize("name", CONFIG_FILES)
+def test_load_config_matches_jax_with_pyyaml_blocked(name, monkeypatch):
+    from uni_encoder_tpu.config import load_config as jax_load_config
+    from uni_encoder_tpu.config import to_dict as jax_to_dict
+
+    path = os.path.join(CONFIGS, name)
+    want = jax_to_dict(jax_load_config(path, ["solver.base_lr=0.0002"]))
+    monkeypatch.setitem(sys.modules, "yaml", None)  # `import yaml` raises from here on
+    with pytest.raises(ImportError):
+        import yaml as _  # noqa: F401
+    assert _same_tree(to_dict(load_config(path, ["solver.base_lr=0.0002"])), want)

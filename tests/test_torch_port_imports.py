@@ -3,8 +3,9 @@ neither PIL nor cv2 when it is imported.
 
 tests/conftest.py imports jax for every test, so the import check runs in a
 fresh interpreter; a source scan backs it up for imports that only run
-inside functions. The port's sources, `evaluate_torch.py` and
-`chip_smoke.py` are checked.
+inside functions. The port's sources, `evaluate_torch.py`, `train_torch.py`
+and `chip_smoke.py` are checked, and the train mappers import neither PIL
+nor cv2 when they run.
 """
 
 import os
@@ -22,6 +23,7 @@ for m in pkgutil.walk_packages(port.__path__, "uni_encoder_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 import evaluate_torch
+import train_torch
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "jaxlib", "uni_encoder_tpu", "PIL", "cv2"))
 print(bad)
 sys.exit(1 if bad else 0)
@@ -42,6 +44,7 @@ def _sources():
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "evaluate_torch.py")
+    yield os.path.join(REPO, "train_torch.py")
 
 
 def test_source_scan_finds_no_jax_package_import():
@@ -84,6 +87,34 @@ def test_walk_covers_the_training_modules():
     for mod in ("training.train_step", "training.criterion", "training.matcher", "training.monodepth",
                 "models.text_transformer", "ops.ms_deform_attn", "engine.convert", "engine.checkpoint",
                 "engine.tta", "data.image_io", "data.mappers", "data.build", "data.datasets.kitti",
-                "evaluation.cityscapes", "evaluation.kitti", "native"):
+                "evaluation.cityscapes", "evaluation.kitti", "native", "data.train_mappers", "data.color",
+                "engine.events"):
         assert f"uni_encoder_tpu_torch.{mod}" in names, mod
     assert os.path.exists(os.path.join(PORT, "kernels", "csrc", "ms_deform_attn_backward.cu"))
+
+
+_MAPPERS = """
+import sys, tempfile
+from uni_encoder_tpu_torch.data import datasets, synthetic
+from uni_encoder_tpu_torch.data.catalog import DatasetCatalog
+from uni_encoder_tpu_torch.data.train_mappers import SegmentationTrainMapper, SequenceTrainMapper
+import train_torch
+with tempfile.TemporaryDirectory() as root:
+    synthetic.write_cityscapes_train(root, 1, (64, 128))
+    datasets.register_all(root)
+    seg = SegmentationTrainMapper(crop_size=(64, 128), min_sizes=(96,), max_size=256, num_texts=4)
+    seg(DatasetCatalog.get("cityscapes_fine_panoptic_train")[0])
+    SequenceTrainMapper(hw=(32, 64))(DatasetCatalog.get("cityscapes_sequence_crop_full_sequence_train")[0])
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "jaxlib", "uni_encoder_tpu", "PIL", "cv2"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_train_mappers_run_without_pil_or_cv2():
+    """One call of each train mapper, in a fresh interpreter, imports
+    neither PIL nor cv2 (nor anything of JAX)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _MAPPERS], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

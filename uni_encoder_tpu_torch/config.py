@@ -11,9 +11,9 @@ configs/**/*.yaml. Differences by design:
   * frozen dataclasses (hashable, safe to share between modules);
   * `_base_` inheritance + dotted-path CLI overrides (`a.b.c=value`);
   * no `!!python/object/apply:eval` — computed lists are written out;
-  * `yaml` is imported inside the YAML loader only, so importing this
-    module, and `a.b.c=value` overrides (`parse_override`), do not need
-    PyYAML.
+  * no PyYAML: config files are read by `parse_block_yaml` and
+    `a.b.c=value` overrides by `parse_override`, which read the YAML the
+    configs use and raise on the rest (the GPU machine has no PyYAML).
 """
 
 from __future__ import annotations
@@ -288,11 +288,11 @@ def _merge(base: Dict, overrides: Dict) -> Dict:
 
 
 def load_yaml_tree(path: str) -> Dict[str, Any]:
-    import yaml
-
+    """The mapping of a config file (`parse_block_yaml`), with its `_base_`
+    file's tree merged under it."""
     p = Path(path)
     with open(p) as f:
-        data = yaml.safe_load(f) or {}
+        data = parse_block_yaml(f.read(), str(p))
     base = data.pop("_base_", None)
     if base:
         parent = load_yaml_tree(str((p.parent / base).resolve()))
@@ -368,6 +368,110 @@ def parse_override(text: str) -> Any:
     if text in _YAML_SPECIAL_FLOAT:
         return _YAML_SPECIAL_FLOAT[text]
     return text
+
+
+_YAML_KEY = re.compile(r"([A-Za-z_][A-Za-z0-9_]*):(?: +(.*))?")
+
+
+def _strip_comment(line: str) -> str:
+    """`line` without its comment: a `#` at the start or after a space,
+    outside quotes."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] == " "):
+            return line[:i]
+    return line
+
+
+def _is_item(text: str) -> bool:
+    return text == "-" or text.startswith("- ")
+
+
+def parse_block_yaml(text: str, source: str = "<string>") -> Dict[str, Any]:
+    """The mapping a config file holds, as `yaml.safe_load` reads it, without
+    PyYAML (absent on the GPU machine). It reads the block subset that
+    configs/*.yaml use: mappings nested by indentation, with identifier
+    keys; block lists of values (`- [1, 20, 1]`), indented under their key
+    or level with it; values that `parse_override` reads (plain and quoted
+    scalars by YAML 1.1's rules, flow lists, nested too); `#` comments. An
+    empty value is None and an empty file {}. Anything else raises
+    ValueError rather than being read differently: anchors and aliases,
+    tags, flow mappings, block scalars (`|`, `>`) and plain scalars over
+    several lines, mappings inside list items, tabs, document markers,
+    duplicate keys."""
+    lines = []
+    for no, raw in enumerate(text.splitlines(), 1):
+        if "\t" in raw:
+            raise ValueError(f"{source}:{no}: tab character (indent with spaces)")
+        body = _strip_comment(raw).rstrip()
+        content = body.lstrip(" ")
+        if not content:
+            continue
+        if content in ("---", "...") or content.startswith("%"):
+            raise ValueError(f"{source}:{no}: document markers and directives are not read: {content!r}")
+        lines.append((len(body) - len(content), content, no))
+    if not lines:
+        return {}
+
+    def fail(i: int, why: str):
+        indent, content, no = lines[i]
+        raise ValueError(f"{source}:{no}: {why}: {content!r}")
+
+    def value(i: int, text: str):
+        try:
+            return parse_override(text)
+        except ValueError as e:
+            fail(i, str(e))
+
+    def block(i: int, indent: int):
+        return sequence(i, indent) if _is_item(lines[i][1]) else mapping(i, indent)
+
+    def mapping(i: int, indent: int):
+        out: Dict[str, Any] = {}
+        while i < len(lines) and lines[i][0] == indent and not _is_item(lines[i][1]):
+            m = _YAML_KEY.fullmatch(lines[i][1])
+            if not m:
+                fail(i, "expected `key: value` or `key:` with an identifier key")
+            key, rest = m.group(1), m.group(2)
+            if key in out:
+                fail(i, f"duplicate key {key!r}")
+            if rest:
+                out[key] = value(i, rest)
+                i += 1
+                if i < len(lines) and lines[i][0] > indent:
+                    fail(i, "a value continued on the next line, or a block under a key that has a value")
+            elif i + 1 < len(lines) and (lines[i + 1][0] > indent or
+                                         (lines[i + 1][0] == indent and _is_item(lines[i + 1][1]))):
+                out[key], i = block(i + 1, lines[i + 1][0])
+            else:
+                out[key] = None
+                i += 1
+        if i < len(lines) and lines[i][0] > indent:
+            fail(i, "indentation that matches no enclosing block")
+        return out, i
+
+    def sequence(i: int, indent: int):
+        out = []
+        while i < len(lines) and lines[i][0] == indent and _is_item(lines[i][1]):
+            rest = lines[i][1][1:].strip()
+            if not rest or _YAML_KEY.fullmatch(rest):
+                fail(i, "a list item must be a value on its line")
+            out.append(value(i, rest))
+            i += 1
+            if i < len(lines) and lines[i][0] > indent:
+                fail(i, "a list item continued on the next line")
+        return out, i
+
+    if _is_item(lines[0][1]):
+        fail(0, "the top level of a config must be a mapping")
+    tree, i = mapping(0, lines[0][0])
+    if i < len(lines):
+        fail(i, "indentation that matches no enclosing block")
+    return tree
 
 
 def _set_dotted(tree: Dict, dotted: str, value: Any) -> None:

@@ -1,13 +1,15 @@
 """Synthetic Cityscapes and KITTI trees in the datasets' own layouts, made
-from a seed, for the tests and the smoke run of the evaluation entry point
-(no real dataset is needed; the JAX package's tests write the same layout,
-tests/test_eval_pipeline.py:20-73).
+from a seed, for the tests and the smoke runs of the evaluation and
+training entry points (no real dataset is needed; the JAX package's tests
+write the same layout, tests/test_eval_pipeline.py:20-73).
 
 - `write_cityscapes_val`: `cityscapes/` val images with the panoptic PNG +
   json, `_labelTrainIds` and 16-bit `_instanceIds` maps: sky, building,
   road and sidewalk, two cars and a person, and a void corner;
 - `write_cityscapes_sequence`: `cityscapes_crop/` test frames with their
   t-2 / t+2 neighbours, camera json and `gt_depths/*.npy`;
+- `write_cityscapes_train`: the panoptic train split and the
+  `cityscapes_full_crop/` sequence train split that `train_torch.py` reads;
 - `write_kitti`: an Eigen-split KITTI drive with PNG frames, the two
   calibration files and velodyne scans (`register_kitti` registers it);
 - `gt_as_prediction`: a segmentation item's GT files as the Predictor's
@@ -68,8 +70,8 @@ def _layout(rng: np.random.RandomState, h: int, w: int):
     return ids, segments
 
 
-def write_cityscapes_val(root: str, n: int = 2, hw: Tuple[int, int] = (1024, 2048), seed: int = 0) -> None:
-    """`n` val images of `hw` under root/cityscapes (the panoptic val split)."""
+def _write_panoptic_split(root: str, split: str, n: int, hw: Tuple[int, int], seed: int,
+                          instance_ids: bool) -> None:
     h, w = hw
     rng = np.random.RandomState(seed)
     base = os.path.join(root, "cityscapes")
@@ -83,14 +85,58 @@ def write_cityscapes_val(root: str, n: int = 2, hw: Tuple[int, int] = (1024, 204
         train = np.full((h, w), 255, np.uint8)
         for did, tid in ID_TO_TRAINID.items():
             train[dataset_id == did] = tid
-        _png(os.path.join(base, "leftImg8bit/val", CITY, stem + "_leftImg8bit.png"), _photo(rng, palette[train]))
+        _png(os.path.join(base, f"leftImg8bit/{split}", CITY, stem + "_leftImg8bit.png"),
+             _photo(rng, palette[train]))
         pan = np.stack([ids % 256, (ids // 256) % 256, ids // 65536], axis=-1).astype(np.uint8)
-        _png(os.path.join(base, "gtFine/cityscapes_panoptic_val", stem + "_gtFine_panoptic.png"), pan)
-        _png(os.path.join(base, "gtFine/val", CITY, stem + "_gtFine_labelTrainIds.png"), train)
-        _png(os.path.join(base, "gtFine/val", CITY, stem + "_gtFine_instanceIds.png"), ids.astype(np.uint16))
+        _png(os.path.join(base, f"gtFine/cityscapes_panoptic_{split}", stem + "_gtFine_panoptic.png"), pan)
+        _png(os.path.join(base, f"gtFine/{split}", CITY, stem + "_gtFine_labelTrainIds.png"), train)
+        if instance_ids:
+            _png(os.path.join(base, f"gtFine/{split}", CITY, stem + "_gtFine_instanceIds.png"),
+                 ids.astype(np.uint16))
         anns.append({"image_id": stem, "file_name": stem + "_gtFine_panoptic.png", "segments_info": segments})
-    with open(os.path.join(base, "gtFine/cityscapes_panoptic_val.json"), "w") as f:
+    with open(os.path.join(base, f"gtFine/cityscapes_panoptic_{split}.json"), "w") as f:
         json.dump({"annotations": anns}, f)
+
+
+def write_cityscapes_val(root: str, n: int = 2, hw: Tuple[int, int] = (1024, 2048), seed: int = 0) -> None:
+    """`n` val images of `hw` under root/cityscapes (the panoptic val split)."""
+    _write_panoptic_split(root, "val", n, hw, seed, instance_ids=True)
+
+
+def _scene(rng: np.random.RandomState, h: int, w: int) -> np.ndarray:
+    """A float RGB scene of 16-pixel blocks, for frames shifted against it."""
+    scene = rng.randint(40, 216, (max(h // 16, 2), max(w // 16, 2), 3)).astype(np.float32)
+    scene = np.repeat(np.repeat(scene, 16, 0), 16, 1)[:h, :w]
+    return np.pad(scene, ((0, h - scene.shape[0]), (0, w - scene.shape[1]), (0, 0)), mode="edge")
+
+
+def write_cityscapes_train(root: str, n: int = 2, hw: Tuple[int, int] = (1024, 2048), seed: int = 3) -> None:
+    """The two training splits `train_torch.py` reads, `n` items each at
+    `hw`: `cityscapes_fine_panoptic_train` (images with the panoptic PNG +
+    json and `_labelTrainIds`, the scenes of `write_cityscapes_val`) and
+    `cityscapes_sequence_crop_full_sequence_train` under
+    root/cityscapes_full_crop (t-2, t and t+2 frames of a shifting scene,
+    camera json, `train_files.txt`); tests/test_train_cli.py's layout."""
+    _write_panoptic_split(root, "train", n, hw, seed, instance_ids=False)
+    h, w = hw
+    rng = np.random.RandomState(seed + 1)
+    base = os.path.join(root, "cityscapes_full_crop")
+    lines = []
+    for i in range(n):
+        fid = 10 + 4 * i
+        file_id = f"{CITY}_{i:06d}_{fid:06d}"
+        lines.append(f"{CITY} {file_id}")
+        scene = _scene(rng, h, w)
+        for off, shift in ((-2, -8), (0, 0), (2, 8)):
+            name = f"{CITY}_{i:06d}_{fid + off:06d}_leftImg8bit.png"
+            _png(os.path.join(base, "leftImg8bit_sequence/train", CITY, name),
+                 _photo(rng, np.roll(scene, shift, axis=1)))
+        cam_dir = os.path.join(base, "camera/train", CITY)
+        os.makedirs(cam_dir, exist_ok=True)
+        with open(os.path.join(cam_dir, file_id + "_camera.json"), "w") as f:
+            json.dump({"intrinsic": {"fx": 2262.52, "fy": 2265.30, "u0": 1096.98, "v0": 513.14}}, f)
+    with open(os.path.join(base, "train_files.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
 
 
 def write_cityscapes_sequence(root: str, n: int = 2, hw: Tuple[int, int] = (1024, 2048),
@@ -105,9 +151,7 @@ def write_cityscapes_sequence(root: str, n: int = 2, hw: Tuple[int, int] = (1024
     for i in range(n):
         file_id = f"{CITY}_{i:06d}_000019"
         lines.append(f"{CITY} {file_id}")
-        scene = rng.randint(40, 216, (max(h // 16, 2), max(w // 16, 2), 3)).astype(np.float32)
-        scene = np.repeat(np.repeat(scene, 16, 0), 16, 1)[:h, :w]
-        scene = np.pad(scene, ((0, h - scene.shape[0]), (0, w - scene.shape[1]), (0, 0)), mode="edge")
+        scene = _scene(rng, h, w)
         for frame, shift in ((17, -8), (19, 0), (21, 8)):
             name = f"{CITY}_{i:06d}_{frame:06d}_leftImg8bit.png"
             split_dir = "leftImg8bit/test" if frame == 19 else "leftImg8bit_sequence/test"

@@ -1,7 +1,7 @@
-"""Host helpers of the evaluation path (the port's counterpart of
-`uni_encoder_tpu/native/__init__.py`).
+"""Host helpers of the evaluation and training data paths (the port's
+counterpart of `uni_encoder_tpu/native/__init__.py`).
 
-Two are C++, in one library built from `csrc/*.cpp`:
+Three are C++, in one library built from `csrc/*.cpp`:
 
 - `png_unfilter` (`csrc/png.cpp`): the PNG Average and Paeth filters make
   each byte depend on the reconstructed byte to its left and the row
@@ -9,12 +9,17 @@ Two are C++, in one library built from `csrc/*.cpp`:
   a 1024x2048 RGB image);
 - `resample_pass` (`csrc/resample.cpp`): one pass of PIL's fixed-point
   resampling, whose tap-by-tap numpy form builds an int64 copy of the image
-  for every tap.
+  for every tap;
+- `resize_bilinear_u8` (`csrc/resize.cpp`): the segmentation train
+  mapper's bilinear resize with torch's coordinate rule, the same
+  arithmetic as the JAX package's `uniio.cpp`, so the same bytes.
 
-The library is compiled with `g++ -O3` into `build/native/` at the
+The library is compiled with `g++ -O3 -pthread` (no `-ffast-math`, no
+`-march`: either could change the float bytes) into `build/native/` at the
 repository root the first time it is needed (or when a source is newer
 than it) and loaded with ctypes. A failed build raises; there is no slower
-path behind it. `png_unfilter_plain` and `resample_pass_plain` are the same
+path behind it (the JAX package falls back to PIL's BILINEAR, which gives
+other bytes). `png_unfilter_plain` and `resample_pass_plain` are the same
 functions in numpy and Python loops, which the tests hold the C++ ones
 against.
 
@@ -36,7 +41,7 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "build", "native"
 )
-SOURCES = tuple(os.path.join(CSRC, f) for f in ("png.cpp", "resample.cpp"))
+SOURCES = tuple(os.path.join(CSRC, f) for f in ("png.cpp", "resample.cpp", "resize.cpp"))
 _LIB_PATH = os.path.join(BUILD_DIR, "libimage_io.so")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -45,7 +50,7 @@ _lib: Optional[ctypes.CDLL] = None
 def _build() -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{_LIB_PATH}.tmp{os.getpid()}.{threading.get_ident()}"
-    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", *SOURCES, "-o", tmp]
+    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread", *SOURCES, "-o", tmp]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
     except FileNotFoundError as e:
@@ -69,6 +74,8 @@ def get_lib() -> ctypes.CDLL:
             lib.png_unfilter.restype = i64
             lib.resample_pass_u8.argtypes = [u8p, i64, i64, i64, i64p, i64p, i32p, i64, i64, u8p]
             lib.resample_pass_u8.restype = None
+            lib.resize_bilinear_u8.argtypes = [u8p, i64, i64, i64, u8p, i64, i64]
+            lib.resize_bilinear_u8.restype = None
             _lib = lib
         return _lib
 
@@ -164,6 +171,21 @@ def resample_pass_plain(src: np.ndarray, first: np.ndarray, count: np.ndarray, w
         idx = np.minimum(first + k, src.shape[1] - 1)
         acc += src[:, idx].astype(np.int64) * w[None, :, None]
     return np.clip(acc >> 22, 0, 255).astype(np.uint8)
+
+
+def resize_bilinear_u8(img: np.ndarray, oh: int, ow: int) -> np.ndarray:
+    """Bilinear resize of a uint8 (H, W, C) image to (oh, ow, C) with
+    torch's coordinate rule, half-pixel centres (`csrc/resize.cpp`): the JAX
+    package's `native.resize_bilinear_u8` with align_corners false, byte for
+    byte."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim != 3 or oh < 1 or ow < 1:
+        raise ValueError(f"expected a uint8 (H, W, C) image and a positive size, got {img.shape} -> ({oh}, {ow})")
+    h, w, c = img.shape
+    out = np.empty((oh, ow, c), np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    get_lib().resize_bilinear_u8(img.ctypes.data_as(u8p), h, w, c, out.ctypes.data_as(u8p), oh, ow)
+    return out
 
 
 def decode_panoptic_ids(rgb: np.ndarray) -> np.ndarray:
