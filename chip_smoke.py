@@ -1,16 +1,17 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the hand-written
 CUDA kernels from this checkout, holds each against its plain PyTorch version
 at the main path's shapes, serves full-width 1024x2048 segmentation requests
-and 192x512 two-frame depth/motion requests through the port's entry points,
-takes full-width training steps, and reports per-kernel times.
+and 192x512 two-frame depth/motion requests through the port's entry points
+(on the Swin-T model, then on the ResNet-18, ConvNeXt-L and DiNAT-L
+configs), takes full-width training steps, and reports per-kernel times.
 
     python3 chip_smoke.py
 
 Phases, one JSON line each: device, build, k1_vs_plain, k1_class_chunks,
-k2_vs_plain, k3_vs_plain, serve, stages, profile, kernels_on_served_tensors,
-reference_small, sequence, sequence_stages, frame, predictor,
-sequence_reference_small, train, train_reference_small, train_deterministic,
-train_entry, eval.
+k2_vs_plain, k3_vs_plain, k4_vs_plain, serve, stages, profile,
+kernels_on_served_tensors, reference_small, sequence, sequence_stages, frame,
+predictor, sequence_reference_small, train, train_reference_small,
+train_deterministic, train_entry, eval, and backbones (one line per config).
 Then the card's name and power limit as nvidia-smi reports them, the
 {"kernels": [...]} line, and last {"ok": true, "device": {...}}. Any failure
 raises and the script exits non-zero without the last line. It needs a CUDA
@@ -38,6 +39,37 @@ written, and `evaluate_torch.build_model` loads the last one byte for byte,
 with exactly the training-only keys (text encoder, text projector, prompt
 context, logit scale) left unused.
 
+K4, dilated neighborhood attention, is held against its plain version in
+`k4_vs_plain` at every NAT-layer shape of a DiNAT-L backbone pass
+(configs/cityscapes_dinat.yaml; head dim 32, kernel 7) over a 1024x2048
+frame (256x512 with 6 heads at dilations 1 and 20, 128x256 with 12 at 1, 5
+and 10, 64x128 with 24 at 1 to 4, 32x64 with 48 at 1 and 2) and over a
+192x512 pair, both frames in one pass (B=2: 48x128 at 1 and 20, 24x64 at 1,
+5 and 10, 12x32 at 1 to 4, 6x16 at 1 and 2; most of these sub-grids are
+shorter than the kernel, so the clamped windows repeat keys), in bf16 and
+fp32, reruns byte-identical; it reports each shape's kernel, plain and
+bound times, their sums over each pass's 30 launches, and the time of
+torch.compile(flex_attention) with the window as its mask_mod and the bias
+as its score_mod at stage 0, dilation 1 (the library yardstick: null, with
+the reason, if it does not compile).
+
+The phase `backbones` serves configs/cityscapes_r18.yaml,
+cityscapes_convnext.yaml and cityscapes_dinat.yaml (read by the port's YAML
+reader) at full width and depth in bf16, random weights from seed 0: 2
+1024x2048 panoptic requests through serve_segmentation and 2 192x512 pairs
+through serve_sequence, each kind once more profiled (device time per
+request). It fails unless the outputs are finite and of the right shapes
+and the launches are exact: K1 1 and K2 6 per segmentation request, K4 30
+per DiNAT backbone pass (0 for the others), K3 never. Then per config the
+card (its kernels, fp32, TF32 off) against the CPU (the plain versions) on a
+128x256 image and a 64x128 pair, stage by stage: the backbone's features,
+the pixel decoder's outputs, the query decoder fed the CPU's pixel-decoder
+outputs and the sequence outputs at atol 1e-4, rtol 1e-3; end to end,
+pred_logits and pred_masks at atol 5e-3, rtol 1e-3 for all but 0.1% of their
+elements, each of those within 5e-2 (the query decoder's masked attention
+thresholds its own mask logits, so the pixel decoder's fp32 noise can flip
+a mask bit; SMALL_PRED_OUTLIERS, SMALL_PRED_MAX_ERR).
+
 The phase `eval` drives the evaluation entry point, `evaluate_torch.main`,
 at full width on a synthetic Cityscapes / KITTI tree (4 images per
 dataset) with a reference-style .pth of random weights: the loaded state
@@ -48,12 +80,16 @@ launched 6 times per segmentation forward, and the same evaluators fed the
 GT must score PQ = mIoU = AP = 100.
 
 Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of HBM, 67 TFLOP/s
-of fp32 outside the tensor cores and 495 TFLOP/s of TF32 on them (at the
-700 W power limit). K1 runs its semantic product on TF32 tensor cores, so
-its bound counts that product at the TF32 rate; the all-CUDA-core bound is
-reported beside it. The build phase reports ptxas's stack-frame bytes for
-each kernel (K2 and each of K3's three kernels must have none) and the HMMA
-count of K1's SASS.
+of fp32 outside the tensor cores, 495 TFLOP/s of TF32 and 989 TFLOP/s of
+bf16 on them (at the 700 W power limit). K1 runs its semantic product on
+TF32 tensor cores, so its bound counts that product at the TF32 rate; the
+all-CUDA-core bound is reported beside it. K4's bf16 bound counts the
+logits q . k (bf16 products summed in fp32) at the bf16 tensor-core rate
+and the weighted sum of values and the softmax at the fp32 rate, though
+the kernel runs all of it on CUDA cores. The build phase reports ptxas's
+stack-frame bytes for each kernel (K2, each of K3's three kernels and both
+instantiations of K4, bf16 and fp32, must have none) and the HMMA count of
+K1's SASS.
 """
 
 import json
@@ -69,6 +105,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
+BF16_FLOP_PER_S = 989e12
 
 SEG_H, SEG_W = 1024, 2048
 SEQ_H, SEQ_W = 192, 512  # the sequence request: a two-frame pair
@@ -110,6 +147,17 @@ EVAL_SEG_SET = "cityscapes_fine_panoptic_val"
 EVAL_PLANTED = {"motion_decoder.layer1.0.weight": (256, 1536, 1, 1),
                 "motion_decoder.layer1.1.left.0.weight": (256, 256, 3, 3),
                 "text_encoder.transformer.resblocks.0.attn.in_proj_weight": (768, 256)}
+BACKBONE_CONFIGS = {"resnet": "configs/cityscapes_r18.yaml", "convnext": "configs/cityscapes_convnext.yaml",
+                    "dinat": "configs/cityscapes_dinat.yaml"}
+N_BACKBONE_REQUESTS = 2  # served per config and request kind with the launch counts read; one more profiled
+# The share of pred_logits / pred_masks elements the backbones phase's
+# card-against-CPU check lets past its tolerance: on the CPU alone, N(0, 1e-5)
+# noise on the pixel decoder's outputs (fp32 summation-order noise) moves 1 of
+# ConvNeXt-L's 3000 class logits by 9.4e-3 and 27 of its 307200 mask logits
+# past atol 5e-3 + rtol 1e-3, through the query decoder's masked attention,
+# each by at most 9.5e-3; SMALL_PRED_MAX_ERR caps the outliers at 5x that
+SMALL_PRED_OUTLIERS = 1e-3
+SMALL_PRED_MAX_ERR = 5e-2
 
 
 def emit(phase, **fields):
@@ -165,11 +213,12 @@ def compare_post(got, ref, map_mismatch):
     return out
 
 
-def compare_msda(got, ref, fp32):
+def compare_msda(got, ref, fp32, name="K2"):
     """fp32: atol/rtol 1e-5 (tests/test_ms_deform_attn.py:51). bf16: within
     one bf16 ulp of the plain output plus the fp32 atol 1e-5 (both sum the
     same fp32 products in another order and round once; the atol covers
-    sums that cancel to near zero, whose ulp is below fp32's error)."""
+    sums that cancel to near zero, whose ulp is below fp32's error). Also
+    K4's tolerance, on the same grounds."""
     got, ref = got.float(), ref.float()
     err = (got - ref).abs()
     if fp32:
@@ -179,7 +228,7 @@ def compare_msda(got, ref, fp32):
         bad = err > ulp + 1e-5
         if bool(bad.any()):
             i = int(torch.argmax((err - ulp) * bad))
-            raise AssertionError(f"K2 bf16: {int(bad.sum())} values beyond 1 ulp + 1e-5, worst "
+            raise AssertionError(f"{name} bf16: {int(bad.sum())} values beyond 1 ulp + 1e-5, worst "
                                  f"kernel {got.flatten()[i].item()} plain {ref.flatten()[i].item()}")
     return err.max().item()
 
@@ -196,11 +245,9 @@ def k1_bound(Q, K, h, w):
 
 def k1_bound_semantic_on_tensor_cores(Q, K, h, w):
     """K1's least time if its semantic product ran on TF32 tensor cores
-    beside the rest on CUDA cores (ms): the largest of the byte time and the
-    two units' operation times."""
-    nbytes, flops = k1_bound(Q, K, h, w)
-    semantic = 2 * K * Q * 16 * h * w
-    return max(nbytes / HBM_BYTES_PER_S, semantic / TF32_FLOP_PER_S, (flops - semantic) / FP32_FLOP_PER_S) * 1e3
+    beside the rest on CUDA cores (ms)."""
+    return bound_fields(*k1_bound(Q, K, h, w), tensor_flops=2 * K * Q * 16 * h * w,
+                        tensor_rate=TF32_FLOP_PER_S)["bound_ms"]
 
 
 def k2_bound(B, Lq, S, M, D, L, P, nbytes_el):
@@ -254,9 +301,13 @@ def msda_inputs(g, B, Lq, M, L, P, dtype, dev):
     return off.reshape(B, Lq, -1).to(dev, dtype).contiguous(), logits.to(dev, dtype).contiguous()
 
 
-def bound_fields(nbytes, flops):
+def bound_fields(nbytes, flops, tensor_flops=0, tensor_rate=BF16_FLOP_PER_S):
+    """The least time (ms): the larger of the byte time and the operation
+    time, where `tensor_flops` of the `flops` run at `tensor_rate` on the
+    tensor cores and the rest at the fp32 rate on the CUDA cores, the two
+    units side by side."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = max(tensor_flops / tensor_rate, (flops - tensor_flops) / FP32_FLOP_PER_S) * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
 
@@ -746,6 +797,300 @@ def train_entry_phase(dev, smi):
     return launches
 
 
+def na_bound(B, H, W, nh, dh, kernel):
+    """Bytes, operations and the operations bf16 tensor cores could do, for
+    bf16 inputs: q, k, v read once, the output written once (and the bias
+    table); per query and head k * k * dh multiply-adds of the logits q . k
+    (bf16 products summed in fp32, as the tensor cores do), k * k * dh of
+    the weighted sum of values (fp32 probabilities) and 4 * k * k softmax
+    operations (bias add, max, exp, sum) on the CUDA cores."""
+    nbytes = 4 * B * H * W * nh * dh * 2 + nh * (2 * kernel - 1) ** 2 * 2
+    logits = B * H * W * nh * 2 * kernel * kernel * dh
+    flops = logits + B * H * W * nh * (2 * kernel * kernel * dh + 4 * kernel * kernel)
+    return nbytes, flops, logits
+
+
+def na_qkv(g, B, H, W, nh, dh, kernel, dtype, dev):
+    """q, k, v as DiNAT's attention hands them to K4 (views of one
+    (B, H, W, 3, heads, dh) projection output, spread like a LayerNormed
+    input through a fan-in-scaled Linear) and an rpb table."""
+    qkv = torch.randn(B, H, W, 3, nh, dh, generator=g).to(dev, dtype)
+    rpb = (torch.randn(nh, 2 * kernel - 1, 2 * kernel - 1, generator=g) * 0.5).to(dev, dtype)
+    return qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2], rpb
+
+
+def dinat_frame_layers(cfg, H, W, B=1):
+    """(B, h, w, heads, dh, dilation) of each NAT layer of one DiNAT
+    backbone pass over B (H, W) images."""
+    c = cfg.backbone.dinat
+    return [(B, H // 4 >> i, W // 4 >> i, c.num_heads[i], c.embed_dim * 2 ** i // c.num_heads[i], d)
+            for i in range(len(c.depths)) for d in c.dilations[i]]
+
+
+def flex_neighborhood(q, k, v, rpb, kernel, dilation):
+    """The same function through one PyTorch call: flex_attention over the
+    flattened map with the clamped window as its mask_mod and the rpb as its
+    score_mod (exact where no window repeats a key). Returns (output in
+    (B, H, W, heads, dh), the compiled call)."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    B, H, W, nh, dh = q.shape
+    L, r = H * W, kernel // 2
+    bias = rpb.float()
+
+    def window(i, size):
+        m, qd = i % dilation, i // dilation
+        sub_len = (size - m + dilation - 1) // dilation
+        start = torch.minimum(torch.clamp(qd - r, min=0), torch.clamp(sub_len - kernel, min=0))
+        return m, qd, start
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        (mh, _, sh), (mw, _, sw) = window(q_idx // W, H), window(q_idx % W, W)
+        ki, kj = kv_idx // W, kv_idx % W
+        return ((ki % dilation == mh) & (ki // dilation >= sh) & (ki // dilation < sh + kernel)
+                & (kj % dilation == mw) & (kj // dilation >= sw) & (kj // dilation < sw + kernel))
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        # evaluated on masked-out pairs of a block too: clamp into the table
+        rel_h = (kv_idx // W) // dilation - (q_idx // W) // dilation + kernel - 1
+        rel_w = (kv_idx % W) // dilation - (q_idx % W) // dilation + kernel - 1
+        return score + bias[h, rel_h.clamp(0, 2 * kernel - 2), rel_w.clamp(0, 2 * kernel - 2)]
+
+    mask = create_block_mask(mask_mod, B=None, H=None, Q_LEN=L, KV_LEN=L, device=q.device, _compile=True)
+    fn = torch.compile(flex_attention)
+    heads = [x.reshape(B, L, nh, dh).transpose(1, 2) for x in (q, k, v)]
+
+    def call():
+        return fn(*heads, score_mod=score_mod, block_mask=mask, scale=1.0)
+
+    return call().transpose(1, 2).reshape(B, H, W, nh, dh), call
+
+
+def k4_phase(dev, smi):
+    """K4 against its plain version at every NAT layer shape of a DiNAT-L
+    backbone pass (configs/cityscapes_dinat.yaml) over a 1024x2048 frame and
+    over a 192x512 pair (B=2; its small maps and large dilations give
+    sub-grids shorter than the kernel), in bf16 and fp32; each shape's
+    kernel, plain and bound times; each pass's 30 launches summed; and
+    flex_attention (a library call, timed here and used nowhere in the port)
+    at stage 0, dilation 1. Returns the kernels line's fields, at the
+    frame's stage 0, dilation 1, bf16."""
+    from uni_encoder_tpu_torch import kernels
+    from uni_encoder_tpu_torch.config import load_config
+    from uni_encoder_tpu_torch.ops.neighborhood_attention import (
+        neighborhood_attention_2d_cuda,
+        neighborhood_attention_2d_plain,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), BACKBONE_CONFIGS["dinat"])).model
+    kernel = cfg.backbone.dinat.kernel_size
+    layers = dinat_frame_layers(cfg, SEG_H, SEG_W)
+    pair_layers = dinat_frame_layers(cfg, SEQ_H, SEQ_W, B=2)  # forward_sequence: both frames in one pass
+    g = torch.Generator(device="cpu").manual_seed(4)
+    shapes = {}
+    for shape in sorted(set(layers) | set(pair_layers), reverse=True):
+        B, H, W, nh, dh, d = shape
+        row = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, rpb = na_qkv(g, B, H, W, nh, dh, kernel, dtype, dev)
+            scale = dh ** -0.5
+            with torch.inference_mode():
+                got = neighborhood_attention_2d_cuda(q, k, v, rpb, kernel, d, scale)
+                ref = neighborhood_attention_2d_plain(q, k, v, rpb, kernel, d, scale)
+                # the plain version computes in fp32 and rounds once, as the
+                # kernel does, in another order (the kernel's online softmax)
+                err = compare_msda(got, ref, fp32=dtype == torch.float32, name="K4")
+                if not torch.equal(got, neighborhood_attention_2d_cuda(q, k, v, rpb, kernel, d, scale)):
+                    raise AssertionError(f"K4 rerun at {shape} {dtype} is not byte-identical")
+                key = "fp32" if dtype == torch.float32 else "bf16"
+                row[f"{key}_max_abs_err"] = err
+                row[f"{key}_ms"] = cuda_ms(lambda: neighborhood_attention_2d_cuda(q, k, v, rpb, kernel, d, scale), 20)
+                if dtype == torch.bfloat16:
+                    row["plain_ms"] = cuda_ms(
+                        lambda: neighborhood_attention_2d_plain(q, k, v, rpb, kernel, d, scale), 2)
+                    row.update(bound_fields(*na_bound(B, H, W, nh, dh, kernel)))
+                    if shape == layers[0]:
+                        stage0 = (q, k, v, rpb, ref, scale)
+            del q, k, v, rpb, got, ref
+        shapes[str(shape)] = row
+    frame, pair = ({k: sum(shapes[str(s)][k] for s in ls) for k in ("bf16_ms", "plain_ms", "bound_ms")}
+                   for ls in (layers, pair_layers))
+
+    # the library yardstick at stage 0, dilation 1 (no repeated keys there);
+    # torch.compile's caches go under build/, beside the kernels
+    build = os.path.dirname(kernels.BUILD_DIR)
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", os.path.join(build, "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(build, "triton"))
+    q, k, v, rpb, ref, scale = stage0
+    library = {"call": "torch.compile(flex_attention) with the window as mask_mod and rpb as score_mod"}
+    try:
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            out, call = flex_neighborhood(q * scale, k, v, rpb, kernel, 1)
+            torch.cuda.synchronize()
+            library["compile_s"] = time.perf_counter() - t0
+            library["max_abs_err_vs_plain"] = (out.float() - ref.float()).abs().max().item()
+            library["ms"] = cuda_ms(call, 10)
+    except Exception as e:  # a yardstick only: its failure is reported, and the row says null
+        library["error"] = f"{type(e).__name__}: {str(e)[:400]}"
+    del stage0, q, k, v, rpb, ref
+    torch.cuda.empty_cache()
+    B, H, W, nh, dh, _ = layers[0]
+    emit("k4_vs_plain", kernel=kernel, dh_and_heads="from configs/cityscapes_dinat.yaml", shapes=shapes,
+         frame={"layers": len(layers), **frame}, pair={"layers": len(pair_layers), **pair},
+         library_stage0_dilation1=library,
+         tolerance="fp32 atol/rtol 1e-5; bf16 within 1 ulp of the fp32-computed plain output + 1e-5",
+         seconds=time.perf_counter() - t_phase, card=smi)
+    s0 = shapes[str(layers[0])]
+    return dict(max_abs_err=max(max(r["bf16_max_abs_err"], r["fp32_max_abs_err"]) for r in shapes.values()),
+                ms=s0["bf16_ms"], plain_ms=s0["plain_ms"], bound_ms=s0["bound_ms"], bound_by=s0["bound_by"],
+                library_ms=library.get("ms"), shape=[B, H, W, nh, dh, 1], frame_ms=frame["bf16_ms"],
+                frame_plain_ms=frame["plain_ms"], frame_bound_ms=frame["bound_ms"], pair_ms=pair["bf16_ms"],
+                pair_plain_ms=pair["plain_ms"], pair_bound_ms=pair["bound_ms"])
+
+
+def backbones_phase(dev, smi, kernel_fns):
+    """The three backbone configs (read by the port's YAML reader) at full
+    width and depth, random weights from seed 0 (class head x8), bf16:
+    N_BACKBONE_REQUESTS 1024x2048 panoptic requests through
+    serve_segmentation and as many 192x512 pairs through serve_sequence,
+    each kind with the launch counts read (K1 1 and K2 6 per segmentation
+    request, K4 one per NAT layer per backbone pass, K3 never) and once more
+    profiled; then the card (its kernels, fp32, TF32 off) against the CPU
+    (the plain versions) on a small input. Returns each config's launches."""
+    from uni_encoder_tpu_torch.config import load_config
+    from uni_encoder_tpu_torch.data.tokenizer import tokenize_task
+    from uni_encoder_tpu_torch.models.oneformer import UniEncoder
+
+    launched = {}
+    for name, path in BACKBONE_CONFIGS.items():
+        t_phase = time.perf_counter()
+        cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), path)).model
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = UniEncoder(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+        with torch.no_grad():
+            model.predictor.class_embed.weight.mul_(8.0)
+        build_s = time.perf_counter() - t0
+        nat_layers = sum(cfg.backbone.dinat.depths) if name == "dinat" else 0
+        enc_layers = cfg.sem_seg_head.transformer_enc_layers
+        rng = np.random.RandomState(0)
+        images = torch.from_numpy(rng.randn(1, SEG_H, SEG_W, 3).astype(np.float32)).to(dev, torch.bfloat16)
+        cur, prev = (torch.from_numpy(rng.randn(1, SEQ_H, SEQ_W, 3).astype(np.float32)).to(dev, torch.bfloat16)
+                     for _ in range(2))
+        tokens = torch.tensor([tokenize_task(TASK)], dtype=torch.int64, device=dev)
+        thing = torch.isin(torch.arange(cfg.sem_seg_head.num_classes), torch.arange(11, 19)).to(dev)
+        kinds = {"segmentation": lambda: serve_segmentation(model, images, tokens, thing),
+                 "sequence": lambda: serve_sequence(model, cur, prev)}
+        want = {"segmentation": {"k1": 1, "k2": enc_layers, "k3": 0, "k4": nat_layers},
+                "sequence": {"k1": 0, "k2": 0, "k3": 0, "k4": nat_layers}}
+        fields, checks, launched[name] = {}, {}, {}
+        for kind, fn in kinds.items():
+            t0 = time.perf_counter()
+            fn()  # warm-up: cuDNN's plans for these shapes, the allocator
+            torch.cuda.synchronize()
+            warmup_ms = (time.perf_counter() - t0) * 1e3
+            reset_launches(*kernel_fns.values())
+            wall_ms = []
+            for _ in range(N_BACKBONE_REQUESTS):
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                wall_ms.append((time.perf_counter() - t0) * 1e3)
+            launched[name][kind] = {k: f.launches for k, f in kernel_fns.items()}
+            checks[f"{kind}_launches"] = launched[name][kind] == {
+                k: n * N_BACKBONE_REQUESTS for k, n in want[kind].items()}
+            if kind == "segmentation":
+                out, posts = out
+                Qm = cfg.one_former.num_object_queries
+                checks["pred_logits"] = tuple(out["pred_logits"].shape) == (1, Qm, cfg.sem_seg_head.num_classes + 1)
+                checks["pred_masks"] = tuple(out["pred_masks"].shape) == (1, Qm, SEG_H // 4, SEG_W // 4)
+                checks["finite_logits"] = bool(torch.isfinite(out["pred_logits"]).all()
+                                               and torch.isfinite(out["pred_masks"]).all())
+                checks["maps_u8"] = all(posts[0][k].dtype == torch.uint8 and tuple(posts[0][k].shape) == (SEG_H, SEG_W)
+                                        for k in ("sem_seg_argmax", "panoptic_seg"))
+                checks["finite_scores"] = bool(torch.isfinite(posts[0]["scores"]).all())
+            else:
+                checks.update({f"sequence_{k}": v for k, v in check_sequence_outputs(out, 1, SEQ_H, SEQ_W).items()})
+            prof = profile_device(fn, 1, float(np.median(wall_ms)))
+            fields[kind] = {"warmup_ms": warmup_ms, "request_wall_ms": wall_ms,
+                            "device_ms_per_request": prof["kernel_ms"],
+                            "busy_share_untraced": prof["busy_share_untraced"],
+                            "kernel_launches_per_request": prof["kernel_launches"],
+                            "top_kernels_ms": prof["top_kernels_ms"]}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        params = sum(p.numel() for p in model.backbone.parameters())
+        del model, out, kinds
+        torch.cuda.empty_cache()
+
+        # the card against the CPU on a small input, fp32, the same weights:
+        # stage by stage, so that a difference is placed where it starts;
+        # the CPU first, so that the card's query decoder is also fed the
+        # CPU's pixel-decoder outputs and held alone (query_decoder_*)
+        small = torch.from_numpy(rng.randn(1, 128, 256, 3).astype(np.float32))
+        small_pair = [torch.from_numpy(rng.randn(1, 64, 128, 3).astype(np.float32)) for _ in range(2)]
+        outs = {}
+        for dname, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
+            m = UniEncoder(cfg, device=d, dtype=torch.float32, seed=0)
+            with torch.no_grad():
+                m.predictor.class_embed.weight.mul_(8.0)
+            with torch.inference_mode():
+                feats = m.backbone(small.to(d))
+                mask_features, _, multi_scale = m.pixel_decoder(feats)
+                task = m.task_mlp(tokens.to(d, torch.float32))
+                if dname == "cpu":
+                    decoder_in = ([x.to(dev) for x in multi_scale], mask_features.to(dev), task.to(dev))
+                    alone = m.predictor(multi_scale, mask_features, task)
+                else:
+                    alone = m.predictor(*decoder_in)
+                outs[dname] = {**{f"backbone_{k}": v for k, v in feats.items()}, "mask_features": mask_features,
+                               **{f"pixel_decoder_{i}": v for i, v in enumerate(multi_scale)},
+                               **{f"query_decoder_{k}": alone[k] for k in ("pred_logits", "pred_masks")},
+                               **m.forward_segmentation(small.to(d), tokens.to(d)),
+                               **serve_sequence(m, *(x.to(d) for x in small_pair))}
+            del m
+        del decoder_in
+        # fp32 with TF32 off; cuBLAS, cuDNN, K2 and K4 sum in other orders than the CPU
+        tolerances = {k: (1e-4, 1e-3) for k in outs["cpu"]
+                      if k.startswith(("backbone_", "pixel_decoder_", "query_decoder_"))}
+        tolerances.update({"mask_features": (1e-4, 1e-3), "pred_logits": (5e-3, 1e-3), "pred_masks": (5e-3, 1e-3),
+                           "disp": (1e-4, 1e-3), "complete_flow": (1e-4, 1e-3), "motion_mask": (1e-4, 1e-3),
+                           "cam_T_cam": (1e-4, 1e-3)})
+        small_errs = {}
+        for k, (atol, rtol) in tolerances.items():
+            a, b = outs["cuda"][k].cpu().float(), outs["cpu"][k].float()
+            err = (a - b).abs()
+            over = err > atol + rtol * b.abs()
+            small_errs[k] = {"max_abs_err": err.max().item(), "ref_max_abs": b.abs().max().item(),
+                             "beyond_tolerance": int(over.sum()), "elements": over.numel()}
+            if k.startswith("pred_"):
+                # end to end, the query decoder thresholds its own mask logits
+                # at 0 for its masked attention, so the pixel decoder's fp32
+                # noise can flip a mask bit and move a few outputs past the
+                # tolerance: up to SMALL_PRED_OUTLIERS of the elements, by at
+                # most SMALL_PRED_MAX_ERR (fed the CPU's inputs, query_decoder_*
+                # above, the decoder is held tightly with no outlier)
+                checks[f"small_{k}"] = (int(over.sum()) <= SMALL_PRED_OUTLIERS * over.numel()
+                                        and err.max().item() <= SMALL_PRED_MAX_ERR)
+            else:
+                checks[f"small_{k}"] = not bool(over.any())
+        del outs
+        torch.cuda.empty_cache()
+        emit("backbones", config=path, backbone=name, backbone_parameters=params, dtype="bfloat16",
+             requests=N_BACKBONE_REQUESTS, image=[1, SEG_H, SEG_W, 3], pair=[1, SEQ_H, SEQ_W, 3],
+             model_build_s=build_s, launches=launched[name], **fields, peak_memory_gb=peak_gb, checks=checks,
+             reference_small={"image": [1, 128, 256, 3], "pair": [1, 64, 128, 3], "errors": small_errs,
+                              "tolerance": "backbone, pixel decoder, query decoder fed the CPU's pixel-decoder "
+                                           "outputs and sequence atol 1e-4 rtol 1e-3; end to end pred_logits and "
+                                           "pred_masks atol 5e-3 rtol 1e-3 for all but "
+                                           f"{SMALL_PRED_OUTLIERS:.1%} of their elements, each within "
+                                           f"{SMALL_PRED_MAX_ERR}"},
+             seconds=time.perf_counter() - t_phase, card=smi)
+        fail_unless(f"backbones {name}", checks)
+    return launched
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -771,6 +1116,7 @@ def main():
         ms_deform_attn_fused_cuda,
         ms_deform_attn_fused_plain,
     )
+    from uni_encoder_tpu_torch.ops.neighborhood_attention import neighborhood_attention_2d_cuda
     from uni_encoder_tpu_torch.training.matcher import assign_on_host
     from uni_encoder_tpu_torch.training.train_step import Trainer
 
@@ -795,11 +1141,12 @@ def main():
     k2_frames = ptxas_stack_frames(kernels.build_log_path("ms_deform_attn"), "msda_fused_kernel")
     k3_frames = {k: ptxas_stack_frames(kernels.build_log_path("ms_deform_attn_backward"), k) for k in K3_KERNELS}
     k1_frames = ptxas_stack_frames(kernels.build_log_path("fused_postprocess"), "fused_kernel")
+    k4_frames = ptxas_stack_frames(kernels.build_log_path("neighborhood_attention"), "na2d_kernel")
     k1_hmma = sass_count(kernels.library_path("fused_postprocess"), "HMMA")
     emit("build", seconds=time.perf_counter() - t0, per_source=secs, ptxas=ptxas,
          k2_stack_frame_bytes=k2_frames, k3_stack_frame_bytes=k3_frames, k1_stack_frame_bytes=k1_frames,
-         k1_sass_hmma=k1_hmma)
-    for name, frames in (("K2", k2_frames), *((f"K3 {k}", v) for k, v in k3_frames.items())):
+         k4_stack_frame_bytes=k4_frames, k1_sass_hmma=k1_hmma)
+    for name, frames in (("K2", k2_frames), *((f"K3 {k}", v) for k, v in k3_frames.items()), ("K4", k4_frames)):
         if not frames or any(frames):
             raise AssertionError(f"{name} stack frames {frames}: expected 0 bytes for every instantiation")
     if k1_hmma == 0:
@@ -937,6 +1284,9 @@ def main():
                          **bound_fields(*k3_bound(B, Lq, S, M, D, L, P)))
     del value, off, logits, grad_out, got, reruns, leaves, plain_out, ref, zero, nan_out, nan_value
     torch.cuda.empty_cache()
+
+    # ------------------------------------------------- K4 against its plain
+    results["k4"] = dict(k4_phase(dev, smi), stack_frame_bytes=max(k4_frames))
 
     # ------------------------------------------- serve three full-width requests
     cfg = Config().model
@@ -1383,14 +1733,23 @@ def main():
     # ---------------- the evaluation entry point on synthetic full-size data
     # (last: the shape-keyed device constants of its TTA scales stay cached)
     eval_launches = eval_phase(dev, smi)
+    torch.cuda.empty_cache()
+
+    # ---------------- the ResNet-18, ConvNeXt-L and DiNAT-L configs, served
+    kernel_fns = {"k1": fused_postprocess_cuda, "k2": ms_deform_attn_fused_cuda,
+                  "k3": ms_deform_attn_fused_backward_cuda, "k4": neighborhood_attention_2d_cuda}
+    backbone_launches = backbones_phase(dev, smi, kernel_fns)
 
     print(smi, flush=True)
     rows = []
     # K1 and K2 launches are the served requests' (phase serve), K3's the
     # timed training steps' (phase train); train_entry_launches those of the
     # train_torch run (phase train_entry), eval_launches those of the two
-    # evaluate_torch runs (phase eval)
+    # evaluate_torch runs (phase eval), backbones_launches those of the
+    # three configs' served requests (phase backbones); K4's launches are the
+    # DiNAT config's served requests', both kinds
     launches["k3"] = train_launches["k3"]
+    launches["k4"] = sum(backbone_launches["dinat"][kind]["k4"] for kind in ("segmentation", "sequence"))
     for key, name, source, replaces in (
         ("k1", "fused_multitask_inference", "uni_encoder_tpu_torch/kernels/csrc/fused_postprocess.cu",
          "uni_encoder_tpu/inference/fused_postprocess.py:61"),
@@ -1398,16 +1757,22 @@ def main():
          "uni_encoder_tpu/ops/ms_deform_attn.py:73"),
         ("k3", "ms_deform_attn_fused_backward", "uni_encoder_tpu_torch/kernels/csrc/ms_deform_attn_backward.cu",
          "uni_encoder_tpu/training/train_step.py:340"),
+        ("k4", "neighborhood_attention_2d", "uni_encoder_tpu_torch/kernels/csrc/neighborhood_attention.cu",
+         "uni_encoder_tpu/ops/neighborhood_attention.py:48"),
     ):
         r = results[key]
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[key],
-                     "train_entry_launches": train_entry_launches[key],
+                     "train_entry_launches": train_entry_launches.get(key, 0),
                      "eval_launches": {task: n.get(key, 0) for task, n in eval_launches.items()},
+                     "backbones_launches": {name: {kind: n[key] for kind, n in per.items()}
+                                            for name, per in backbone_launches.items()},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                     "library_ms": None,
-                     **{k: r[k] for k in ("function_ms", "stack_frame_bytes", "deterministic") if k in r}})
+                     "library_ms": r.get("library_ms"),
+                     **{k: r[k] for k in ("function_ms", "stack_frame_bytes", "deterministic", "shape", "frame_ms",
+                                          "frame_plain_ms", "frame_bound_ms", "pair_ms", "pair_plain_ms",
+                                          "pair_bound_ms") if k in r}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)

@@ -33,9 +33,34 @@ SEQ_ATOL = 1e-5  # tests/test_whole_model_parity.py:52, rtol 1e-4
 SEQUENCE_PREFIXES = ("sem_seg_head.depth_decoder.", "pose_decoder.", "motion_decoder.", "motion_mask.")
 
 
-def make_cfg(C):
+# the scaled backbones besides Swin: narrow widths, few blocks. DiNAT's
+# dilations give sub-grids shorter than its kernel (the duplicate-index edge)
+# at 224x448 in levels 1 and 2, and at 128x256 in levels 0 and 3
+DINAT_DEPTHS = (2, 2, 2, 1)
+DINAT_DILATIONS = ((1, 8), (1, 5), (1, 3), (1,))
+CONVNEXT_DEPTHS = (1, 1, 2, 1)
+RESNET_BLOCKS = (2, 2, 2, 2)  # depth 18
+
+
+def backbone_cfg(C, backbone: str = "swin"):
+    """The scaled BackboneConfig of `backbone`, from either package's config module `C`."""
+    if backbone == "swin":
+        return C.BackboneConfig(name="swin", swin=C.SwinConfig(embed_dim=EMBED, depths=DEPTHS, num_heads=HEADS))
+    if backbone == "resnet":
+        return C.BackboneConfig(name="resnet", resnet=C.ResNetConfig(depth=18, stem_out_channels=16,
+                                                                     res2_out_channels=16))
+    if backbone == "convnext":
+        return C.BackboneConfig(name="convnext", convnext=C.ConvNeXtConfig(depths=CONVNEXT_DEPTHS,
+                                                                           dims=(EMBED, 2 * EMBED, 4 * EMBED, 8 * EMBED)))
+    if backbone == "dinat":
+        return C.BackboneConfig(name="dinat", dinat=C.DiNATConfig(embed_dim=EMBED, depths=DINAT_DEPTHS, num_heads=HEADS,
+                                                                  kernel_size=7, dilations=DINAT_DILATIONS,
+                                                                  mlp_ratio=2.0))
+    raise ValueError(backbone)
+
+
+def make_cfg(C, backbone: str = "swin"):
     """The scaled ModelConfig, from either package's config module `C`."""
-    swin = C.SwinConfig(embed_dim=EMBED, depths=DEPTHS, num_heads=HEADS)
     of = C.OneFormerConfig(
         num_object_queries=NQ, dec_layers=DEC_LAYERS, class_dec_layers=2,
         dim_feedforward=DFF, hidden_dim=CONV_DIM, nheads=NHEADS,
@@ -44,7 +69,7 @@ def make_cfg(C):
         num_classes=K, convs_dim=CONV_DIM, mask_dim=CONV_DIM, transformer_enc_layers=ENC_LAYERS,
     )
     return dataclasses.replace(
-        C.Config().model, backbone=C.BackboneConfig(name="swin", swin=swin), sem_seg_head=head, one_former=of,
+        C.Config().model, backbone=backbone_cfg(C, backbone), sem_seg_head=head, one_former=of,
     )
 
 
@@ -78,14 +103,28 @@ def random_d2_state(model: nn.Module, seed: int = 7):
     return state
 
 
-def jax_variables(state):
+def convert_backbone(c, backbone: str = "swin"):
+    """The JAX converter's rules for the scaled `backbone`, into Converter `c`."""
+    from uni_encoder_tpu.engine import checkpoint as ckpt
+
+    if backbone == "swin":
+        ckpt.convert_swin(c, DEPTHS)
+    elif backbone == "resnet":
+        ckpt.convert_resnet(c, RESNET_BLOCKS)
+    elif backbone == "convnext":
+        ckpt.convert_convnext(c, CONVNEXT_DEPTHS)
+    else:
+        ckpt.convert_dinat(c, DINAT_DEPTHS)
+
+
+def jax_variables(state, backbone: str = "swin"):
     """The JAX package's flax {"params", "batch_stats"} for the same d2 state
     dict; every key must be consumed (this also checks the port's module
     names)."""
     from uni_encoder_tpu.engine import checkpoint as ckpt
 
     c = ckpt.Converter(state)
-    ckpt.convert_swin(c, DEPTHS)
+    convert_backbone(c, backbone)
     ckpt.convert_msdeform_pixel_decoder(c, layers=ENC_LAYERS)
     ckpt.convert_query_decoder(c, dec_layers=DEC_LAYERS - 1)
     ckpt.convert_task_mlp(c)
@@ -97,29 +136,29 @@ def jax_variables(state):
     return {"params": c.params, "batch_stats": c.batch_stats}
 
 
-def port_model(state=None):
+def port_model(state=None, backbone: str = "swin"):
     """The port's scaled UniEncoder on the CPU, with `state` loaded strictly."""
     from uni_encoder_tpu_torch import config as TC
     from uni_encoder_tpu_torch.models.oneformer import UniEncoder
 
-    model = UniEncoder(make_cfg(TC), device="cpu")
+    model = UniEncoder(make_cfg(TC, backbone), device="cpu")
     if state is not None:
         model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()}, strict=True)
     return model
 
 
-def model_pair(seed: int):
+def model_pair(seed: int, backbone: str = "swin"):
     """The port model with a random d2 state dict loaded strictly, the JAX
     model, the JAX variables of the same state, and the state. The class
     head is scaled up so that queries clear the 0.8 keep threshold."""
     from uni_encoder_tpu import config as JC
     from uni_encoder_tpu.models.oneformer import UniEncoder as JUniEncoder
 
-    model = port_model()
+    model = port_model(backbone=backbone)
     state = random_d2_state(model, seed=seed)
     state["sem_seg_head.predictor.class_embed.weight"] *= 8.0
     model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()}, strict=True)
-    return model, JUniEncoder(make_cfg(JC)), jax_variables(state), state
+    return model, JUniEncoder(make_cfg(JC, backbone)), jax_variables(state, backbone), state
 
 
 def t(x):

@@ -272,3 +272,110 @@ def test_ms_deform_attn_cuda_op_carries_grad_fn(cuda):
         torch.testing.assert_close(leaf.grad, b, atol=1e-4, rtol=1e-4)
     with torch.inference_mode():
         assert ms_deform_attn_fused(value, shapes, off, logits, ref_abs).grad_fn is None
+
+
+# ------------------------------------------------------------------------ K4
+def _na_qkv(seed, B, H, W, nh, dh, kernel, device, dtype):
+    """q, k, v as DiNAT's attention hands them to K4: views of one
+    (B, H, W, 3, heads, dh) qkv tensor; and rpb."""
+    rng = np.random.RandomState(seed)
+    qkv = torch.from_numpy(rng.randn(B, H, W, 3, nh, dh).astype(np.float32)).to(device, dtype)
+    rpb = torch.from_numpy(rng.randn(nh, 2 * kernel - 1, 2 * kernel - 1).astype(np.float32)).to(device, dtype)
+    return qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2], rpb
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nh", [1, 3])
+@pytest.mark.parametrize("H,W,kernel,dilation", [(13, 21, 7, 1), (13, 21, 7, 2), (5, 11, 3, 3), (48, 64, 7, 20),
+                                                  (24, 64, 7, 5), (7, 9, 5, 1)])
+def test_neighborhood_attention_kernel_matches_plain(cuda, nh, dtype, H, W, kernel, dilation):
+    """K4 on strided qkv views at head dim 32 (the one it is built for)
+    against the plain version on the same inputs, with the module's scale.
+    The plain version computes in fp32 and rounds once, as the kernel does,
+    in another order (an online softmax): fp32 atol/rtol 1e-5; bf16 within
+    one bf16 ulp of the plain output plus 1e-5. (5, 11) at dilation 3,
+    (48, 64) at 20 and (24, 64) at 5 hold sub-grids shorter than the kernel:
+    repeated keys."""
+    from uni_encoder_tpu_torch.ops.neighborhood_attention import (
+        neighborhood_attention_2d,
+        neighborhood_attention_2d_cuda,
+        neighborhood_attention_2d_plain,
+    )
+
+    dt, dh = getattr(torch, dtype), 32
+    q, k, v, rpb = _na_qkv(H * W + nh, 2, H, W, nh, dh, kernel, cuda, dt)
+    n0 = neighborhood_attention_2d_cuda.launches
+    with torch.inference_mode():
+        got = neighborhood_attention_2d(q, k, v, rpb, kernel, dilation, scale=dh ** -0.5)
+    assert neighborhood_attention_2d_cuda.launches == n0 + 1
+    assert got.dtype == dt and got.is_contiguous() and got.shape == q.shape
+    ref = neighborhood_attention_2d_plain(q, k, v, rpb, kernel, dilation, scale=dh ** -0.5)
+    if dt == torch.float32:
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    else:
+        got, ref = got.float(), ref.float()
+        ulp = torch.where(ref == 0, torch.zeros_like(ref), 2.0 ** (torch.floor(torch.log2(ref.abs())) - 7))
+        assert ((got - ref).abs() <= ulp + 1e-5).all()
+
+
+def test_neighborhood_attention_kernel_rejects_bad_inputs(cuda):
+    from uni_encoder_tpu_torch.ops.neighborhood_attention import neighborhood_attention_2d_cuda
+
+    q, k, v, rpb = _na_qkv(0, 1, 8, 8, 2, 32, 3, cuda, torch.float32)
+    narrow = torch.zeros(1, 8, 8, 2, 8, device=cuda)
+    shifted = torch.zeros(1 + 8 * 8 * 3 * 2 * 32, device=cuda)[1:].view(1, 8, 8, 3, 2, 32)  # 4 bytes off
+    bad = (
+        (q.half(), k.half(), v.half(), rpb.half()),  # dtype
+        (q, k.to(torch.bfloat16), v, rpb),  # mixed dtypes
+        (q, k.contiguous(), v, rpb),  # strides differ
+        (narrow, narrow, narrow, rpb),  # a head dim the kernel is not built for
+        (q, k, v, rpb[:, :3]),  # rpb shape
+        (q, k, v, rpb.cpu()),  # device
+        (shifted[:, :, :, 0], shifted[:, :, :, 1], shifted[:, :, :, 2], rpb),  # rows not 16-byte aligned
+    )
+    with torch.inference_mode():
+        for args in bad:
+            with pytest.raises(ValueError):
+                neighborhood_attention_2d_cuda(*args, 3, 1)
+
+
+def test_neighborhood_attention_kernel_has_no_backward(cuda):
+    """With grad mode on and an input that requires grad, K4 raises instead
+    of returning an output without a grad_fn; under no_grad it runs."""
+    from uni_encoder_tpu_torch.ops.neighborhood_attention import neighborhood_attention_2d
+
+    q, k, v, rpb = _na_qkv(1, 1, 8, 8, 2, 32, 3, cuda, torch.float32)
+    rpb = rpb.clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        neighborhood_attention_2d(q, k, v, rpb, 3)
+    with torch.no_grad():
+        assert neighborhood_attention_2d(q, k, v, rpb, 3).grad_fn is None
+
+
+def test_dinat_model_matches_cpu(cuda):
+    """The scaled DiNAT UniEncoder in fp32 on the card (K4, TF32 off)
+    against the CPU path (the plain version), from one seed's weights:
+    forward_segmentation at 128x256 at atol 5e-3, rtol 1e-3 and
+    forward_sequence on a 64x128 pair at atol 1e-4, rtol 1e-3 (cuBLAS and
+    cuDNN sum in other orders than the CPU). K4 runs once per NAT layer."""
+    import _torch_port_common as common
+    from uni_encoder_tpu_torch import config as TC
+    from uni_encoder_tpu_torch.models.oneformer import UniEncoder
+    from uni_encoder_tpu_torch.ops.neighborhood_attention import neighborhood_attention_2d_cuda
+
+    rng = np.random.RandomState(5)
+    img = torch.from_numpy(rng.randn(1, 128, 256, 3).astype(np.float32))
+    tokens = torch.ones((1, 77), dtype=torch.int64)
+    pair = [torch.from_numpy(rng.randn(1, 64, 128, 3).astype(np.float32)) for _ in range(2)]
+    outs = {}
+    n0 = neighborhood_attention_2d_cuda.launches
+    for dev in (cuda, torch.device("cpu")):
+        model = UniEncoder(common.make_cfg(TC, "dinat"), device=dev, seed=0)
+        with torch.inference_mode():
+            outs[dev.type] = (model.forward_segmentation(img.to(dev), tokens.to(dev)),
+                              model.forward_sequence(*(x.to(dev) for x in pair)))
+    assert neighborhood_attention_2d_cuda.launches == n0 + 2 * sum(common.DINAT_DEPTHS)
+    for k in ("pred_logits", "pred_masks"):
+        torch.testing.assert_close(outs["cuda"][0][k].cpu(), outs["cpu"][0][k], atol=5e-3, rtol=1e-3, msg=k)
+    for k in ("disp", "motion_mask", "complete_flow", "axisangle", "translation", "cam_T_cam"):
+        torch.testing.assert_close(outs["cuda"][1][k].cpu(), outs["cpu"][1][k], atol=1e-4, rtol=1e-3, msg=k)

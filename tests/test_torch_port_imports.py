@@ -93,6 +93,22 @@ def test_walk_covers_the_training_modules():
     assert os.path.exists(os.path.join(PORT, "kernels", "csrc", "ms_deform_attn_backward.cu"))
 
 
+def test_walk_covers_the_backbones():
+    """The import check walks the ResNet, ConvNeXt and DiNAT backbones and
+    the neighborhood-attention op, and K4's source is listed for the build."""
+    import pkgutil
+
+    import uni_encoder_tpu_torch as port
+    from uni_encoder_tpu_torch import kernels
+
+    names = {m.name for m in pkgutil.walk_packages(port.__path__, "uni_encoder_tpu_torch.")}
+    for mod in ("models.backbones.resnet", "models.backbones.convnext", "models.backbones.dinat",
+                "ops.neighborhood_attention"):
+        assert f"uni_encoder_tpu_torch.{mod}" in names, mod
+    assert "neighborhood_attention" in kernels.SOURCES
+    assert os.path.exists(os.path.join(PORT, "kernels", "csrc", "neighborhood_attention.cu"))
+
+
 _MAPPERS = """
 import sys, tempfile
 from uni_encoder_tpu_torch.data import datasets, synthetic

@@ -3,8 +3,8 @@
 `state_dict_from_jax` turns a JAX-package flax parameter tree and its
 `batch_stats` (numpy or jax arrays) into this package's d2-named state dict:
 the inverse of the JAX checkpoint converter's rules
-(`uni_encoder_tpu/engine/checkpoint.py`: `convert_swin`,
-`convert_msdeform_pixel_decoder`, `convert_query_decoder`,
+(`uni_encoder_tpu/engine/checkpoint.py`: `convert_swin`, `convert_resnet`,
+`convert_convnext`, `convert_dinat`, `convert_msdeform_pixel_decoder`, `convert_query_decoder`,
 `convert_task_mlp`, `convert_transdssl`, `convert_pose_decoder`,
 `convert_motion_decoder`). This module keeps its own copy of those tables.
 
@@ -32,7 +32,8 @@ Layouts:
   * BatchNorm `batch_stats` `mean` / `var` -> `.running_mean` / `.running_var`
   * MHA `in_proj` / `out_proj_kernel` -> `in_proj_weight` / `out_proj.weight`, transposed
 
-Depths and layer counts are read off the tree. A parameter or statistic
+The backbone is told apart by its flax names, and depths and layer counts
+are read off the tree. A parameter or statistic
 that no rule places raises.
 """
 
@@ -111,6 +112,81 @@ def _swin(t: _Table, depths) -> None:
             t.linear(f"{b}layers.{i}.downsample.reduction", ("backbone", f"layers_{i}_downsample", "reduction"),
                      bias=False)
         t.norm(f"{b}norm{i}", ("backbone", f"out_norm{i}"))
+
+
+def _resnet(t: _Table, depths, bottleneck: bool) -> None:
+    """Every block gets shortcut records; only the blocks that project hold
+    one, and a record whose flax leaf is absent places nothing."""
+    b = "backbone."
+    t.conv(b + "stem.conv1", ("backbone", "stem_conv1"), bias=False)
+    t.bn(b + "stem.conv1.norm", ("backbone", "stem_bn1"))
+    for i, depth in enumerate(depths):
+        for j in range(depth):
+            src, dst = f"{b}res{i + 2}.{j}.", ("backbone", f"res{i + 2}_block{j}")
+            for k in range(1, (3 if bottleneck else 2) + 1):
+                t.conv(src + f"conv{k}", dst + (f"conv{k}",), bias=False)
+                t.bn(src + f"conv{k}.norm", dst + (f"bn{k}",))
+            t.conv(src + "shortcut", dst + ("shortcut_conv",), bias=False)
+            t.bn(src + "shortcut.norm", dst + ("shortcut_bn",))
+
+
+def _convnext(t: _Table, depths) -> None:
+    b = "backbone."
+    t.conv(b + "downsample_layers.0.0", ("backbone", "stem_conv"))
+    t.norm(b + "downsample_layers.0.1", ("backbone", "stem_norm"))
+    for i in range(1, len(depths)):
+        t.norm(b + f"downsample_layers.{i}.0", ("backbone", f"downsample_{i}_norm"))
+        t.conv(b + f"downsample_layers.{i}.1", ("backbone", f"downsample_{i}_conv"))
+    for i, depth in enumerate(depths):
+        for j in range(depth):
+            src, dst = f"{b}stages.{i}.{j}.", ("backbone", f"stages_{i}_blocks_{j}")
+            t.conv(src + "dwconv", dst + ("dwconv",))
+            t.norm(src + "norm", dst + ("norm",))
+            t.linear(src + "pwconv1", dst + ("pwconv1",))
+            t.linear(src + "pwconv2", dst + ("pwconv2",))
+            t.raw(src + "gamma", dst + ("gamma",))
+        t.norm(f"{b}norm{i}", ("backbone", f"out_norm{i}"))
+
+
+def _dinat(t: _Table, depths) -> None:
+    b = "backbone."
+    t.conv(b + "patch_embed.proj.0", ("backbone", "tokenizer_conv0"))
+    t.conv(b + "patch_embed.proj.1", ("backbone", "tokenizer_conv1"))
+    t.norm(b + "patch_embed.norm", ("backbone", "tokenizer_norm"))
+    for i, depth in enumerate(depths):
+        for j in range(depth):
+            src, dst = f"{b}levels.{i}.blocks.{j}.", ("backbone", f"levels_{i}_blocks_{j}")
+            t.norm(src + "norm1", dst + ("norm1",))
+            t.norm(src + "norm2", dst + ("norm2",))
+            t.linear(src + "attn.qkv", dst + ("attn", "qkv"))
+            t.raw(src + "attn.rpb", dst + ("attn", "rpb"))
+            t.linear(src + "attn.proj", dst + ("attn", "proj"))
+            t.linear(src + "mlp.fc1", dst + ("mlp_fc1",))
+            t.linear(src + "mlp.fc2", dst + ("mlp_fc2",))
+        if i < len(depths) - 1:
+            t.conv(f"{b}levels.{i}.downsample.reduction", ("backbone", f"downsample_{i}_reduction"), bias=False)
+            t.norm(f"{b}levels.{i}.downsample.norm", ("backbone", f"downsample_{i}_norm"))
+        t.norm(f"{b}norm{i}", ("backbone", f"out_norm{i}"))
+
+
+def _backbone(t: _Table, flat: Dict[Path, np.ndarray]) -> None:
+    """The backbone's table, told apart by its flax names: `stem_conv1`
+    (ResNet), `stages_*` (ConvNeXt), `levels_*` (DiNAT), else Swin's
+    `layers_*`; depths are read off the block names."""
+    names = {p[1] for p in flat if p[0] == "backbone"}
+
+    def depths(fmt: str, n_stages: int):
+        return [_count(names, fmt.format(i=i)) for i in range(n_stages)]
+
+    if "stem_conv1" in names:
+        bottleneck = any(p[:1] == ("backbone",) and p[2:3] == ("conv3",) for p in flat)
+        _resnet(t, depths(r"res{i}_block(\d+)", 6)[2:], bottleneck)
+    elif any(n.startswith("stages_") for n in names):
+        _convnext(t, depths(r"stages_{i}_blocks_(\d+)", _count(names, r"out_norm(\d+)")))
+    elif any(n.startswith("levels_") for n in names):
+        _dinat(t, depths(r"levels_{i}_blocks_(\d+)", _count(names, r"out_norm(\d+)")))
+    else:
+        _swin(t, depths(r"layers_{i}_blocks_(\d+)", _count(names, r"out_norm(\d+)")))
 
 
 def _msdeform_pixel_decoder(t: _Table, layers: int, levels: int) -> None:
@@ -256,15 +332,11 @@ def _count(names, pattern: str) -> int:
 def _tables_for(flat: Dict[Path, np.ndarray], text: Optional[Dict[Path, np.ndarray]] = None) -> _Table:
     """The rule table sized from the depths and layer counts in the trees."""
     names = {p[:2] for p in flat}
-    backbone = [n for top, n in names if top == "backbone"]
     trunk = [p[2] for p in flat if p[:2] == ("pixel_decoder", "trunk")]
     predictor = [n for top, n in names if top == "predictor"]
     mask_embed = [p[2] for p in flat if p[:2] == ("predictor", "mask_embed")]
-    n_stages = _count(backbone, r"out_norm(\d+)")
-    depths = [_count([n for n in backbone if n.startswith(f"layers_{i}_blocks_")], rf"layers_{i}_blocks_(\d+)")
-              for i in range(n_stages)]
     t = _Table()
-    _swin(t, depths)
+    _backbone(t, flat)
     _msdeform_pixel_decoder(t, layers=_count(trunk, r"encoder_layer_(\d+)"),
                             levels=_count(trunk, r"input_proj_(\d+)_conv"))
     _query_decoder(t, dec_layers=_count(predictor, r"cross_attn_(\d+)"),

@@ -1,6 +1,7 @@
 """UniEncoder meta-architecture (port of `uni_encoder_tpu/models/oneformer.py`).
 
-One shared Swin backbone feeds (a) the MSDeformAttn pixel decoder and the
+One shared backbone (Swin, ResNet, ConvNeXt or DiNAT, as `cfg.backbone.name`
+selects) feeds (a) the MSDeformAttn pixel decoder and the
 task-conditioned query decoder for segmentation items, and (b) the two-frame
 pose / motion / depth decoders for sequence items. The task string is
 tokenized on the host; the model feeds the (B, 77) token ids, as floats,
@@ -11,7 +12,7 @@ raw token ids. A sequence item's two frames go through the backbone as one
 Built with `cfg.is_train`, the model is in train mode: the query decoder
 emits its deep-supervision predictions and the seeded queries, BatchNorm
 uses and updates batch statistics, the Swin backbone takes stochastic-depth
-keep masks, `forward_sequence_train` serves the three-frame training window,
+keep masks (training is ported for Swin only: another backbone raises), `forward_sequence_train` serves the three-frame training window,
 and the model holds the text encoder of the contrastive loss
 (`text_encoder`, `text_projector`, `prompt_ctx`, `logit_scale`, named after
 the reference OneFormer's attributes; `encode_text`). The forwards record
@@ -35,6 +36,9 @@ from torch import nn
 from ..config import ModelConfig
 from ..device import resolve_device
 from ..geometry import transformation_from_parameters
+from .backbones.convnext import ConvNeXt
+from .backbones.dinat import DiNAT
+from .backbones.resnet import ResNet
 from .backbones.swin import SwinTransformer
 from .layers import MLP, random_init_
 from .motion_decoder import MotionDecoderV2
@@ -57,20 +61,38 @@ class SemSegHead(nn.Module):
         self.depth_decoder = depth_decoder
 
 
-def build_backbone(cfg: ModelConfig) -> SwinTransformer:
-    if cfg.backbone.name != "swin":
-        raise NotImplementedError(f"backbone {cfg.backbone.name!r} is not ported yet (swin is)")
-    c = cfg.backbone.swin
-    return SwinTransformer(
-        embed_dim=c.embed_dim,
-        depths=c.depths,
-        num_heads=c.num_heads,
-        window=c.window_size,
-        mlp_ratio=c.mlp_ratio,
-        qkv_bias=c.qkv_bias,
-        patch_norm=c.patch_norm,
-        drop_path_rate=c.drop_path_rate,
-    )
+def build_backbone(cfg: ModelConfig) -> nn.Module:
+    """The backbone `cfg.backbone.name` selects, as the JAX package's
+    `build_backbone` builds it. Training is ported for Swin only."""
+    name = cfg.backbone.name
+    if cfg.is_train and name != "swin":
+        raise NotImplementedError(
+            f"training on the {name!r} backbone is not ported yet (ROADMAP.md Queue 1 item 10: "
+            "drop-path keep masks for ConvNeXt and DiNAT, and a backward for the neighborhood-attention kernel)")
+    if name == "swin":
+        c = cfg.backbone.swin
+        return SwinTransformer(
+            embed_dim=c.embed_dim,
+            depths=c.depths,
+            num_heads=c.num_heads,
+            window=c.window_size,
+            mlp_ratio=c.mlp_ratio,
+            qkv_bias=c.qkv_bias,
+            patch_norm=c.patch_norm,
+            drop_path_rate=c.drop_path_rate,
+        )
+    if name == "resnet":
+        c = cfg.backbone.resnet
+        return ResNet(depth=c.depth, stem_out_channels=c.stem_out_channels, res2_out_channels=c.res2_out_channels,
+                      out_features=c.out_features)
+    if name == "convnext":
+        c = cfg.backbone.convnext
+        return ConvNeXt(depths=c.depths, dims=c.dims, layer_scale_init_value=c.layer_scale_init_value)
+    if name == "dinat":
+        c = cfg.backbone.dinat
+        return DiNAT(embed_dim=c.embed_dim, depths=c.depths, num_heads=c.num_heads, kernel_size=c.kernel_size,
+                     dilations=c.dilations, mlp_ratio=c.mlp_ratio)
+    raise ValueError(f"unknown backbone {name!r}")
 
 
 class UniEncoder(nn.Module):
@@ -81,7 +103,8 @@ class UniEncoder(nn.Module):
     weights carried across from the JAX package with
     `engine.convert.state_dict_from_jax`, load on top with
     `load_state_dict(strict=True)`). `device=None` means the GPU and raises
-    when none is visible.
+    when none is visible; `device="meta"` builds the structure (names and
+    shapes) and draws no weights.
     """
 
     def __init__(self, cfg: ModelConfig, device: Optional[Union[str, torch.device]] = None,
@@ -136,15 +159,16 @@ class UniEncoder(nn.Module):
                 self.logit_scale = nn.Parameter(torch.empty(()))
                 text_modules = (self.text_encoder, self.text_projector, self.prompt_ctx)
         self.to_empty(device=device)
-        # segmentation modules first, so that the weights a seed gives them do
-        # not depend on the sequence or text modules
-        generator = torch.Generator(device="cpu").manual_seed(seed)
-        for module in (self.backbone, pixel_decoder, predictor, self.task_mlp,
-                       depth_decoder, self.pose_decoder, self.motion_decoder, self.motion_mask) + text_modules:
-            random_init_(module, generator)
-        if cfg.is_train:
-            with torch.no_grad():
-                self.logit_scale.fill_(math.log(1.0 / 0.07))  # the JAX copy's initial value
+        if device.type != "meta":
+            # segmentation modules first, so that the weights a seed gives them
+            # do not depend on the sequence or text modules
+            generator = torch.Generator(device="cpu").manual_seed(seed)
+            for module in (self.backbone, pixel_decoder, predictor, self.task_mlp,
+                           depth_decoder, self.pose_decoder, self.motion_decoder, self.motion_mask) + text_modules:
+                random_init_(module, generator)
+            if cfg.is_train:
+                with torch.no_grad():
+                    self.logit_scale.fill_(math.log(1.0 / 0.07))  # the JAX copy's initial value
         self.to(dtype)
         self.train(cfg.is_train)
 
