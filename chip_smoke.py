@@ -46,12 +46,16 @@ frame (256x512 with 6 heads at dilations 1 and 20, 128x256 with 12 at 1, 5
 and 10, 64x128 with 24 at 1 to 4, 32x64 with 48 at 1 and 2) and over a
 192x512 pair, both frames in one pass (B=2: 48x128 at 1 and 20, 24x64 at 1,
 5 and 10, 12x32 at 1 to 4, 6x16 at 1 and 2; most of these sub-grids are
-shorter than the kernel, so the clamped windows repeat keys), in bf16 and
-fp32, reruns byte-identical; it reports each shape's kernel, plain and
-bound times, their sums over each pass's 30 launches, and the time of
-torch.compile(flex_attention) with the window as its mask_mod and the bias
-as its score_mod at stage 0, dilation 1 (the library yardstick: null, with
-the reason, if it does not compile).
+shorter than the kernel, so the clamped windows repeat keys), and at
+K4_EDGE_SHAPES (ragged tiles, sub-grids of one key, kernels 3 and 5), in
+bf16 and fp32, reruns byte-identical; it reports each shape's kernel time
+twice (20 calls back to back, host included as a caller sees it, and the
+device alone, the calls replayed from a CUDA graph), the plain and bound
+times, the launch's blocks, shared memory and registers per block, the sums
+over each pass's 30 launches, and the time of torch.compile(flex_attention)
+with the window as its mask_mod and the bias as its score_mod at stage 0,
+dilation 1 (the library yardstick: null, with the reason, if it does not
+compile).
 
 The phase `backbones` serves configs/cityscapes_r18.yaml,
 cityscapes_convnext.yaml and cityscapes_dinat.yaml (read by the port's YAML
@@ -85,15 +89,17 @@ bf16 on them (at the 700 W power limit). K1 runs its semantic product on
 TF32 tensor cores, so its bound counts that product at the TF32 rate; the
 all-CUDA-core bound is reported beside it. K4's bf16 bound counts the
 logits q . k (bf16 products summed in fp32) at the bf16 tensor-core rate
-and the weighted sum of values and the softmax at the fp32 rate, though
-the kernel runs all of it on CUDA cores. The build phase reports ptxas's
-stack-frame bytes for each kernel (K2, each of K3's three kernels and both
-instantiations of K4, bf16 and fp32, must have none) and the HMMA count of
-K1's SASS.
+and the weighted sum of values and the softmax at the fp32 rate. The build
+phase reports ptxas's stack-frame bytes for each kernel (K2, each of K3's
+three kernels and both of K4's, bf16 and fp32, must have none, and K4's no
+spill) and the HMMA counts of K1's and K4's SASS (each must have some: K1's
+semantic product and K4's bf16 logits and P . V run on tensor cores).
 """
 
+import ctypes
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -130,6 +136,13 @@ WATCHED = ("sem_seg_head.pixel_decoder.transformer.encoder.layers.0.self_attn.sa
            "sem_seg_head.pixel_decoder.transformer.encoder.layers.0.self_attn.value_proj.weight",
            "backbone.layers.0.blocks.0.attn.qkv.weight", "motion_decoder.conv5.0.weight",
            "sem_seg_head.predictor.class_embed.weight", "text_encoder.transformer.resblocks.0.attn.in_proj_weight")
+# K4 beyond the DiNAT-L shapes, (B, H, W, heads, dh, dilation, kernel): tiles
+# (8 x 8 sub-grid queries) with ragged edges on both axes, maps shorter than
+# the dilation (sub-grids of one key), sub_len 1 and sub_len < kernel on one
+# axis only, and kernels 3 and 5
+K4_EDGE_SHAPES = ((2, 13, 21, 6, 32, 1, 7), (2, 13, 21, 6, 32, 2, 7), (2, 5, 11, 48, 32, 12, 7),
+                  (2, 3, 64, 24, 32, 4, 7), (2, 20, 96, 12, 32, 4, 7), (2, 19, 27, 12, 32, 1, 5),
+                  (2, 64, 128, 24, 32, 2, 5), (2, 17, 9, 12, 32, 1, 3), (2, 64, 128, 24, 32, 3, 3))
 # the CUDA kernels of K3's source; ptxas must give each a 0-byte stack frame
 K3_KERNELS = ("msda_grad_out_absmax_kernel", "msda_fused_backward_kernel", "msda_grad_value_epilogue_kernel")
 DETERMINISTIC_CHILD = "--train-deterministic-child"
@@ -175,6 +188,31 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_graph_ms(fn, reps, replays=5):
+    """Device time of one `fn()`: `reps` calls captured in one CUDA graph,
+    replayed `replays` times after one warm-up, so that the host's time per
+    call, which bounds `cuda_ms` for a short kernel, is not in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * reps)
 
 
 def blobby(seed, Q, K, h, w):
@@ -259,19 +297,30 @@ def k2_bound(B, Lq, S, M, D, L, P, nbytes_el):
     return nbytes, flops
 
 
-def ptxas_stack_frames(log_path, kernel):
-    """Stack-frame bytes ptxas reports for each build of `kernel` (its
-    template instantiations), from an `nvcc -Xptxas -v` log."""
-    frames, current = [], None
+def ptxas_usage(log_path, kernel):
+    """Registers, stack-frame and spill bytes ptxas reports for each entry
+    function whose name holds `kernel`, from an `nvcc -Xptxas -v` log:
+    {function: {"registers", "stack_frame", "spill_bytes"}}."""
+    usage, compiling, props = {}, None, None
     with open(log_path, errors="replace") as f:
         for line in f:
-            if "Function properties for" in line:
-                current = line.rsplit("for", 1)[1].strip()
-            elif "bytes stack frame" in line and current is not None:
-                if kernel in current:
-                    frames.append(int(line.split("bytes stack frame")[0].split()[-1]))
-                current = None
-    return frames
+            frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            used = re.search(r"Used (\d+) registers", line)
+            if "Compiling entry function" in line:
+                compiling = line.split("'")[1]
+            elif "Function properties for" in line:
+                props = line.rsplit("for", 1)[1].strip()
+            elif frame and props is not None and kernel in props:
+                usage.setdefault(props, {}).update(stack_frame=int(frame[1]),
+                                                   spill_bytes=int(frame[2]) + int(frame[3]))
+            elif used and compiling is not None and kernel in compiling:
+                usage.setdefault(compiling, {})["registers"] = int(used[1])
+    return usage
+
+
+def ptxas_stack_frames(log_path, kernel):
+    """Stack-frame bytes of each build of `kernel` (its template instantiations)."""
+    return [u["stack_frame"] for u in ptxas_usage(log_path, kernel).values() if "stack_frame" in u]
 
 
 def sass_count(lib_path, opcode):
@@ -866,15 +915,30 @@ def flex_neighborhood(q, k, v, rpb, kernel, dilation):
     return call().transpose(1, 2).reshape(B, H, W, nh, dh), call
 
 
-def k4_phase(dev, smi):
+def k4_launch_shape(lib, B, H, W, nh, kernel, dilation, bf16):
+    """(blocks, threads a block, dynamic shared memory bytes a block) of K4's
+    launch at these shapes, from the kernel's own plan."""
+    fn = lib.na2d_launch_shape
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    blocks, threads, smem = ctypes.c_longlong(), ctypes.c_int(), ctypes.c_int()
+    rc = fn(B, H, W, nh, kernel, dilation, int(bf16), ctypes.byref(blocks), ctypes.byref(threads),
+            ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"K4 refuses {(B, H, W, nh, kernel, dilation)}: cudaError {rc}")
+    return blocks.value, threads.value, smem.value
+
+
+def k4_phase(dev, smi, usage):
     """K4 against its plain version at every NAT layer shape of a DiNAT-L
     backbone pass (configs/cityscapes_dinat.yaml) over a 1024x2048 frame and
     over a 192x512 pair (B=2; its small maps and large dilations give
-    sub-grids shorter than the kernel), in bf16 and fp32; each shape's
-    kernel, plain and bound times; each pass's 30 launches summed; and
-    flex_attention (a library call, timed here and used nowhere in the port)
-    at stage 0, dilation 1. Returns the kernels line's fields, at the
-    frame's stage 0, dilation 1, bf16."""
+    sub-grids shorter than the kernel), and at K4_EDGE_SHAPES, in bf16 and
+    fp32; each shape's kernel, plain and bound times, blocks per launch,
+    shared memory and registers per block (`usage`: ptxas's, per kernel);
+    each pass's 30 launches summed; and flex_attention (a library call,
+    timed here and used nowhere in the port) at stage 0, dilation 1. Returns
+    the kernels line's fields, at the frame's stage 0, dilation 1, bf16."""
     from uni_encoder_tpu_torch import kernels
     from uni_encoder_tpu_torch.config import load_config
     from uni_encoder_tpu_torch.ops.neighborhood_attention import (
@@ -887,34 +951,46 @@ def k4_phase(dev, smi):
     kernel = cfg.backbone.dinat.kernel_size
     layers = dinat_frame_layers(cfg, SEG_H, SEG_W)
     pair_layers = dinat_frame_layers(cfg, SEQ_H, SEQ_W, B=2)  # forward_sequence: both frames in one pass
+    lib = kernels.load("neighborhood_attention")
+    regs = {("bf16" if "bf16" in name else "fp32"): u["registers"] for name, u in usage.items()}
     g = torch.Generator(device="cpu").manual_seed(4)
-    shapes = {}
-    for shape in sorted(set(layers) | set(pair_layers), reverse=True):
+
+    def measure(shape, kernel):
         B, H, W, nh, dh, d = shape
         row = {}
         for dtype in (torch.float32, torch.bfloat16):
+            key = "fp32" if dtype == torch.float32 else "bf16"
             q, k, v, rpb = na_qkv(g, B, H, W, nh, dh, kernel, dtype, dev)
             scale = dh ** -0.5
             with torch.inference_mode():
                 got = neighborhood_attention_2d_cuda(q, k, v, rpb, kernel, d, scale)
                 ref = neighborhood_attention_2d_plain(q, k, v, rpb, kernel, d, scale)
                 # the plain version computes in fp32 and rounds once, as the
-                # kernel does, in another order (the kernel's online softmax)
-                err = compare_msda(got, ref, fp32=dtype == torch.float32, name="K4")
+                # kernel does, in another order
+                err = compare_msda(got, ref, fp32=dtype == torch.float32, name=f"K4 {shape} kernel {kernel}")
                 if not torch.equal(got, neighborhood_attention_2d_cuda(q, k, v, rpb, kernel, d, scale)):
                     raise AssertionError(f"K4 rerun at {shape} {dtype} is not byte-identical")
-                key = "fp32" if dtype == torch.float32 else "bf16"
                 row[f"{key}_max_abs_err"] = err
-                row[f"{key}_ms"] = cuda_ms(lambda: neighborhood_attention_2d_cuda(q, k, v, rpb, kernel, d, scale), 20)
+                call = lambda: neighborhood_attention_2d_cuda(q, k, v, rpb, kernel, d, scale)  # noqa: E731
+                row[f"{key}_ms"] = cuda_ms(call, 20)
+                row[f"{key}_device_ms"] = cuda_graph_ms(call, 20)
+                blocks, threads, smem = k4_launch_shape(lib, B, H, W, nh, kernel, d, key == "bf16")
+                row[f"{key}_launch"] = {"blocks": blocks, "threads": threads, "smem_bytes": smem,
+                                        "registers": regs[key] * threads}
                 if dtype == torch.bfloat16:
                     row["plain_ms"] = cuda_ms(
                         lambda: neighborhood_attention_2d_plain(q, k, v, rpb, kernel, d, scale), 2)
                     row.update(bound_fields(*na_bound(B, H, W, nh, dh, kernel)))
-                    if shape == layers[0]:
-                        stage0 = (q, k, v, rpb, ref, scale)
+                    if shape == layers[0] and kernel == cfg.backbone.dinat.kernel_size:
+                        stage0.extend((q, k, v, rpb, ref, scale))
             del q, k, v, rpb, got, ref
-        shapes[str(shape)] = row
-    frame, pair = ({k: sum(shapes[str(s)][k] for s in ls) for k in ("bf16_ms", "plain_ms", "bound_ms")}
+        return row
+
+    stage0 = []
+    shapes = {str(shape): measure(shape, kernel) for shape in sorted(set(layers) | set(pair_layers), reverse=True)}
+    edges = {str(e): measure(e[:6], e[6]) for e in K4_EDGE_SHAPES}
+    frame, pair = ({k: sum(shapes[str(s)][k] for s in ls)
+                    for k in ("bf16_ms", "bf16_device_ms", "fp32_ms", "fp32_device_ms", "plain_ms", "bound_ms")}
                    for ls in (layers, pair_layers))
 
     # the library yardstick at stage 0, dilation 1 (no repeated keys there);
@@ -938,16 +1014,19 @@ def k4_phase(dev, smi):
     torch.cuda.empty_cache()
     B, H, W, nh, dh, _ = layers[0]
     emit("k4_vs_plain", kernel=kernel, dh_and_heads="from configs/cityscapes_dinat.yaml", shapes=shapes,
-         frame={"layers": len(layers), **frame}, pair={"layers": len(pair_layers), **pair},
-         library_stage0_dilation1=library,
+         edge_shapes_with_kernel=edges, frame={"layers": len(layers), **frame},
+         pair={"layers": len(pair_layers), **pair}, library_stage0_dilation1=library,
          tolerance="fp32 atol/rtol 1e-5; bf16 within 1 ulp of the fp32-computed plain output + 1e-5",
          seconds=time.perf_counter() - t_phase, card=smi)
     s0 = shapes[str(layers[0])]
-    return dict(max_abs_err=max(max(r["bf16_max_abs_err"], r["fp32_max_abs_err"]) for r in shapes.values()),
+    rows = list(shapes.values()) + list(edges.values())
+    return dict(max_abs_err=max(max(r["bf16_max_abs_err"], r["fp32_max_abs_err"]) for r in rows),
                 ms=s0["bf16_ms"], plain_ms=s0["plain_ms"], bound_ms=s0["bound_ms"], bound_by=s0["bound_by"],
-                library_ms=library.get("ms"), shape=[B, H, W, nh, dh, 1], frame_ms=frame["bf16_ms"],
-                frame_plain_ms=frame["plain_ms"], frame_bound_ms=frame["bound_ms"], pair_ms=pair["bf16_ms"],
-                pair_plain_ms=pair["plain_ms"], pair_bound_ms=pair["bound_ms"])
+                library_ms=library.get("ms"), shape=[B, H, W, nh, dh, 1], fp32_ms=s0["fp32_ms"],
+                frame_ms=frame["bf16_ms"], frame_plain_ms=frame["plain_ms"], frame_bound_ms=frame["bound_ms"],
+                pair_ms=pair["bf16_ms"], pair_plain_ms=pair["plain_ms"], pair_bound_ms=pair["bound_ms"],
+                device_ms=s0["bf16_device_ms"], frame_device_ms=frame["bf16_device_ms"],
+                pair_device_ms=pair["bf16_device_ms"])
 
 
 def backbones_phase(dev, smi, kernel_fns):
@@ -1141,16 +1220,23 @@ def main():
     k2_frames = ptxas_stack_frames(kernels.build_log_path("ms_deform_attn"), "msda_fused_kernel")
     k3_frames = {k: ptxas_stack_frames(kernels.build_log_path("ms_deform_attn_backward"), k) for k in K3_KERNELS}
     k1_frames = ptxas_stack_frames(kernels.build_log_path("fused_postprocess"), "fused_kernel")
+    k4_usage = ptxas_usage(kernels.build_log_path("neighborhood_attention"), "na2d_kernel")
     k4_frames = ptxas_stack_frames(kernels.build_log_path("neighborhood_attention"), "na2d_kernel")
     k1_hmma = sass_count(kernels.library_path("fused_postprocess"), "HMMA")
+    # K4's fp32 kernel runs on CUDA cores: every HMMA is the bf16 kernel's
+    k4_hmma = sass_count(kernels.library_path("neighborhood_attention"), "HMMA")
     emit("build", seconds=time.perf_counter() - t0, per_source=secs, ptxas=ptxas,
          k2_stack_frame_bytes=k2_frames, k3_stack_frame_bytes=k3_frames, k1_stack_frame_bytes=k1_frames,
-         k4_stack_frame_bytes=k4_frames, k1_sass_hmma=k1_hmma)
+         k4_stack_frame_bytes=k4_frames, k4_ptxas=k4_usage, k1_sass_hmma=k1_hmma, k4_sass_hmma=k4_hmma)
     for name, frames in (("K2", k2_frames), *((f"K3 {k}", v) for k, v in k3_frames.items()), ("K4", k4_frames)):
         if not frames or any(frames):
             raise AssertionError(f"{name} stack frames {frames}: expected 0 bytes for every instantiation")
+    if len(k4_usage) != 2 or any(u.get("spill_bytes") != 0 or "registers" not in u for u in k4_usage.values()):
+        raise AssertionError(f"K4's two kernels (bf16, fp32) must build without spills: {k4_usage}")
     if k1_hmma == 0:
         raise AssertionError("K1's SASS holds no HMMA: the semantic product is not on tensor cores")
+    if k4_hmma == 0:
+        raise AssertionError("K4's SASS holds no HMMA: the bf16 logits are not on tensor cores")
 
     results = {}
 
@@ -1286,7 +1372,7 @@ def main():
     torch.cuda.empty_cache()
 
     # ------------------------------------------------- K4 against its plain
-    results["k4"] = dict(k4_phase(dev, smi), stack_frame_bytes=max(k4_frames))
+    results["k4"] = dict(k4_phase(dev, smi, k4_usage), stack_frame_bytes=max(k4_frames))
 
     # ------------------------------------------- serve three full-width requests
     cfg = Config().model
@@ -1770,8 +1856,9 @@ def main():
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r.get("library_ms"),
-                     **{k: r[k] for k in ("function_ms", "stack_frame_bytes", "deterministic", "shape", "frame_ms",
-                                          "frame_plain_ms", "frame_bound_ms", "pair_ms", "pair_plain_ms",
+                     **{k: r[k] for k in ("function_ms", "stack_frame_bytes", "deterministic", "shape", "fp32_ms",
+                                          "device_ms", "frame_ms", "frame_device_ms", "frame_plain_ms",
+                                          "frame_bound_ms", "pair_ms", "pair_device_ms", "pair_plain_ms",
                                           "pair_bound_ms") if k in r}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -285,17 +285,26 @@ def _na_qkv(seed, B, H, W, nh, dh, kernel, device, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("nh", [1, 3])
-@pytest.mark.parametrize("H,W,kernel,dilation", [(13, 21, 7, 1), (13, 21, 7, 2), (5, 11, 3, 3), (48, 64, 7, 20),
-                                                  (24, 64, 7, 5), (7, 9, 5, 1)])
+@pytest.mark.parametrize("nh", [1, 3, 6, 48])
+@pytest.mark.parametrize("H,W,kernel,dilation", [
+    (13, 21, 7, 1), (13, 21, 7, 2), (19, 27, 5, 1), (17, 9, 3, 1),  # tiles with ragged edges on both axes
+    (5, 11, 3, 3), (7, 9, 5, 1), (6, 16, 7, 2),  # sub-grids shorter than the kernel: repeated keys
+    (48, 64, 7, 20), (24, 64, 7, 5),
+    (5, 11, 7, 12),  # maps shorter than the dilation: sub-grids of one key on both axes
+    (3, 64, 7, 4),  # sub_len 1 on one axis only
+    (20, 96, 7, 4),  # sub_len 5 < k on one axis only
+    (21, 30, 9, 1), (29, 19, 11, 2), (40, 45, 13, 3),  # a warp's two rows span more than 8 halo rows
+])
 def test_neighborhood_attention_kernel_matches_plain(cuda, nh, dtype, H, W, kernel, dilation):
-    """K4 on strided qkv views at head dim 32 (the one it is built for)
-    against the plain version on the same inputs, with the module's scale.
-    The plain version computes in fp32 and rounds once, as the kernel does,
-    in another order (an online softmax): fp32 atol/rtol 1e-5; bf16 within
-    one bf16 ulp of the plain output plus 1e-5. (5, 11) at dilation 3,
-    (48, 64) at 20 and (24, 64) at 5 hold sub-grids shorter than the kernel:
-    repeated keys."""
+    """K4 on strided qkv views (B = 2: the views' batch stride) at head dim
+    32 (the one it is built for) against the plain version on the same
+    inputs, with the module's scale. The plain version computes in fp32 and
+    rounds once, as the kernel does, in another order: fp32 atol/rtol 1e-5;
+    bf16 within one bf16 ulp of the plain output plus 1e-5. Kernels 3 to
+    13 (above 7 the bf16 kernel walks its keys in groups of 8 halo rows);
+    ragged tiles (K4's are 8 x 8 sub-grid queries); sub-grids shorter than
+    the kernel, where the clamped windows repeat keys, on one axis or both,
+    down to one key."""
     from uni_encoder_tpu_torch.ops.neighborhood_attention import (
         neighborhood_attention_2d,
         neighborhood_attention_2d_cuda,
@@ -316,6 +325,19 @@ def test_neighborhood_attention_kernel_matches_plain(cuda, nh, dtype, H, W, kern
         got, ref = got.float(), ref.float()
         ulp = torch.where(ref == 0, torch.zeros_like(ref), 2.0 ** (torch.floor(torch.log2(ref.abs())) - 7))
         assert ((got - ref).abs() <= ulp + 1e-5).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_neighborhood_attention_kernel_reruns_byte_identical(cuda, dtype):
+    """No atomics and a fixed order of every sum: three runs of K4 at a
+    DiNAT-L stage-2 shape of the pair (B = 2, 12x32, 24 heads, dilation 3)
+    give the same bytes."""
+    from uni_encoder_tpu_torch.ops.neighborhood_attention import neighborhood_attention_2d_cuda
+
+    q, k, v, rpb = _na_qkv(7, 2, 12, 32, 24, 32, 7, cuda, getattr(torch, dtype))
+    with torch.inference_mode():
+        runs = [neighborhood_attention_2d_cuda(q, k, v, rpb, 7, 3, scale=32 ** -0.5) for _ in range(3)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
 
 
 def test_neighborhood_attention_kernel_rejects_bad_inputs(cuda):

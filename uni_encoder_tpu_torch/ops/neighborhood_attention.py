@@ -25,7 +25,10 @@ the weighted sum of values all in fp32 and one rounding to the input dtype
 (the JAX op sums the values in the input dtype). On CUDA tensors
 `neighborhood_attention_2d` runs the hand-written kernel K4,
 `kernels/csrc/neighborhood_attention.cu` (`neighborhood_attention_2d_cuda`),
-which has no backward: it raises when autograd would need one.
+which has no backward: it raises when autograd would need one. K4 works on
+tiles of one residue class's sub-grid and the halo of keys their windows
+cover, each key once, weighted by how often a window repeats it;
+`_tile_halo` is that arithmetic in Python, for the tests.
 """
 
 from __future__ import annotations
@@ -59,6 +62,38 @@ def _axis_indices(size: int, kernel: int, dilation: int) -> Tuple[np.ndarray, np
             idx[i, a] = sub * dilation + m
             rel[i, a] = sub - q + (kernel - 1)
     return idx, rel
+
+
+# K4's tile: KERNEL_TILE x KERNEL_TILE queries of one residue class's sub-grid
+KERNEL_TILE = 8
+
+
+def _window_start(q: int, sub_len: int, kernel: int) -> int:
+    """Sub-grid index of the first key of query q's clamped window."""
+    return min(max(q - kernel // 2, 0), max(sub_len - kernel, 0))
+
+
+def _tile_halo(size: int, kernel: int, dilation: int, residue: int, tile: int) -> Tuple[int, int, np.ndarray]:
+    """K4's integer arithmetic along one axis, mirrored here for the tests:
+    for tile `tile` (KERNEL_TILE queries) of residue class `residue`'s
+    sub-grid, (q0, h0, counts). q0 is the sub-grid index of the tile's first
+    query (its queries are q0 .. min(q0 + KERNEL_TILE, sub_len) - 1); the
+    halo is the keys h0 .. h0 + len(counts) - 1 (sub-grid indices), which
+    hold every window of the tile; counts[e] is how often a window that holds
+    key h0 + e lists it: 1, but k - sub_len + 1 for a sub-grid's last key
+    where the sub-grid is shorter than the kernel (every window is then the
+    whole sub-grid)."""
+    sub_len = (size - residue + dilation - 1) // dilation
+    q0 = tile * KERNEL_TILE
+    nq = min(KERNEL_TILE, sub_len - q0)
+    if nq < 1:
+        raise ValueError(f"tile {tile} of residue {residue} holds no query (sub-grid of {sub_len})")
+    length = min(kernel, sub_len)
+    h0 = _window_start(q0, sub_len, kernel)
+    counts = np.ones(_window_start(q0 + nq - 1, sub_len, kernel) + length - h0, np.int64)
+    if sub_len < kernel:
+        counts[sub_len - 1 - h0] = kernel - sub_len + 1
+    return q0, h0, counts
 
 
 def _check_shapes(q, k, v, rpb, kernel: int, dilation: int) -> None:
