@@ -8,10 +8,11 @@ configs), takes full-width training steps, and reports per-kernel times.
     python3 chip_smoke.py
 
 Phases, one JSON line each: device, build, k1_vs_plain, k1_class_chunks,
-k2_vs_plain, k3_vs_plain, k4_vs_plain, serve, stages, profile,
+k2_vs_plain, k3_vs_plain, k4_vs_plain, k5_vs_plain, serve, stages, profile,
 kernels_on_served_tensors, reference_small, sequence, sequence_stages, frame,
 predictor, sequence_reference_small, train, train_reference_small,
-train_deterministic, train_entry, eval, and backbones (one line per config).
+train_deterministic, train_backbones (one line per config), train_entry,
+eval, and backbones (one line per config).
 Then the card's name and power limit as nvidia-smi reports them, the
 {"kernels": [...]} line, and last {"ok": true, "device": {...}}. Any failure
 raises and the script exits non-zero without the last line. It needs a CUDA
@@ -22,11 +23,12 @@ imports nothing of JAX. Served requests run under torch.inference_mode
 K3, the backward of K2, is bitwise deterministic: `k3_vs_plain` fails unless
 three reruns give the same bytes in all three gradients, and checks its two
 edge cases (grad_out all zero, and one NaN in grad_out). The phase
-`train_deterministic` runs this script twice more as child processes
-(`--train-deterministic-child PATH`, with CUBLAS_WORKSPACE_CONFIG=:4096:8),
-each one `Trainer(deterministic=True)` step at train_reference_small's sizes,
-and fails unless their losses, watched gradients and updated parameters are
-the same bytes.
+`train_deterministic` runs this script twice more as child processes, both
+at once (`--train-deterministic-child PATH CONFIG...`, with
+CUBLAS_WORKSPACE_CONFIG=:4096:8), each one `Trainer(deterministic=True)` step
+at train_reference_small's sizes on the default Swin-T model and one on
+configs/cityscapes_dinat.yaml, and fails unless their losses, watched
+gradients and updated parameters are the same bytes.
 
 The phase `train_entry` drives the training entry point, `train_torch.main`,
 on the production Swin-T config (configs/cityscapes_swin_unified.yaml, read
@@ -37,7 +39,38 @@ frame triples, through the train mappers on the host. It fails unless the
 ran 6 times per step and K1 never, the checkpoints of steps 2 and 4 were
 written, and `evaluate_torch.build_model` loads the last one byte for byte,
 with exactly the training-only keys (text encoder, text projector, prompt
-context, logit scale) left unused.
+context, logit scale) left unused. Then it trains configs/cityscapes_dinat.yaml
+for 2 iterations on the same tree: finite losses, K4 and K5 60 launches a
+step.
+
+The phase `train_backbones` takes full-width training steps on
+configs/cityscapes_r18.yaml, cityscapes_convnext.yaml and
+cityscapes_dinat.yaml (fp32, TF32 off, 2 crops of 512x1024 and 2 triples of
+192x512, random weights from seed 0): one warm-up step, 2 timed, 1
+profiled, with the cold and the steady peak memory. It fails unless the
+losses are finite, the parameters move, the launches per step are exact (K2
+and K3 6, K1 0; K4 and K5 60 on DiNAT-L, 0 on the others) and, on
+ResNet-18, the backbone's BatchNorm statistics stay as stored (the JAX
+ResNet never updates them). On DiNAT-L it also holds one small step on the
+card against the CPU (as train_reference_small; a quantity may also differ
+by twice what the CPU's own step moves at one thread, taken by a child
+process, `--cpu-step-child`, that runs on one core beside the phase's card
+steps: on this random model the RANSAC ground-plane fit is near-singular
+and the pose and motion decoders' gradients cancel, so the order of fp32
+sums alone moves them by percents) and holds train_deterministic's two
+deterministic steps on that config, whose bytes must be equal.
+
+K5, the backward of K4 (three CUDA kernels: query tiles for dq and the
+log-sum-exp, key tiles gathering dk and dv over each key's range of
+queries, a fixed-order sum of per-block drpb tables), is held in
+`k5_vs_plain` against autograd of the plain version at every NAT-layer shape
+of a DiNAT-L training step (the crop pass at B=2 over 512x1024, the triples'
+pass at B=6 over 192x512) and at K4_EDGE_SHAPES, fp32: dqkv within atol
+2e-5 + rtol 1e-4, drpb within atol 1e-6 * sqrt(B*H*W*dh) + rtol 1e-4, a rerun
+byte-identical; it reports the kernel, device-only, plain and bound times
+per shape, each pass's 30 launches summed, and the backward of
+torch.compile(flex_attention) at the crop's stage 0, dilation 1 as the
+library yardstick.
 
 K4, dilated neighborhood attention, is held against its plain version in
 `k4_vs_plain` at every NAT-layer shape of a DiNAT-L backbone pass
@@ -89,11 +122,13 @@ bf16 on them (at the 700 W power limit). K1 runs its semantic product on
 TF32 tensor cores, so its bound counts that product at the TF32 rate; the
 all-CUDA-core bound is reported beside it. K4's bf16 bound counts the
 logits q . k (bf16 products summed in fp32) at the bf16 tensor-core rate
-and the weighted sum of values and the softmax at the fp32 rate. The build
-phase reports ptxas's stack-frame bytes for each kernel (K2, each of K3's
-three kernels and both of K4's, bf16 and fp32, must have none, and K4's no
-spill) and the HMMA counts of K1's and K4's SASS (each must have some: K1's
-semantic product and K4's bf16 logits and P . V run on tensor cores).
+and the weighted sum of values and the softmax at the fp32 rate; K5's
+(fp32) counts all of its work at the fp32 rate. The build phase reports
+ptxas's stack-frame bytes for each kernel (K2, each of K3's three kernels,
+both of K4's, bf16 and fp32, and each of K5's three must have none, and
+K4's and K5's no spill) and the HMMA counts of K1's and K4's SASS (each
+must have some: K1's semantic product and K4's bf16 logits and P . V run on
+tensor cores).
 """
 
 import ctypes
@@ -145,7 +180,18 @@ K4_EDGE_SHAPES = ((2, 13, 21, 6, 32, 1, 7), (2, 13, 21, 6, 32, 2, 7), (2, 5, 11,
                   (2, 64, 128, 24, 32, 2, 5), (2, 17, 9, 12, 32, 1, 3), (2, 64, 128, 24, 32, 3, 3))
 # the CUDA kernels of K3's source; ptxas must give each a 0-byte stack frame
 K3_KERNELS = ("msda_grad_out_absmax_kernel", "msda_fused_backward_kernel", "msda_grad_value_epilogue_kernel")
+# WATCHED on a DiNAT model: the heads' parameters, the backbone's first
+# block's qkv projection and the bias table of its second (dilation 20 at
+# stage 0: at 128x256 its sub-grids are 1 and 2 rows long, repeated keys)
+WATCHED_DINAT = tuple(n for n in WATCHED if not n.startswith("backbone.")) + (
+    "backbone.levels.0.blocks.0.attn.qkv.weight", "backbone.levels.0.blocks.1.attn.rpb")
+N_TRAIN_BACKBONE_TIMED = 2  # training steps timed per backbone config, after one warm-up; one more profiled
+TRAIN_ENTRY_DINAT_ITERS = 2  # train_torch.main on configs/cityscapes_dinat.yaml (of 90 000)
+# the CUDA kernels of K5's source; ptxas must give each a 0-byte stack frame and no spill
+K5_KERNELS = ("na2d_bwd_query_kernel", "na2d_bwd_key_kernel", "na2d_bwd_rpb_kernel")
 DETERMINISTIC_CHILD = "--train-deterministic-child"
+CPU_STEP_CHILD = "--cpu-step-child"
+DEFAULT_CONFIG = "default"  # a child's config argument for the default Swin-T model
 TRAIN_ENTRY_CONFIG = "configs/cityscapes_swin_unified.yaml"  # the production Swin-T config, read without PyYAML
 TRAIN_ENTRY_ITERS, TRAIN_ENTRY_ITEMS = 4, 4  # iterations (of 90 000); synthetic items per training split
 # the state-dict keys only a model built with is_train owns: the text encoder
@@ -474,10 +520,10 @@ def k3_bound(B, Lq, S, M, D, L, P):
     return nbytes, flops
 
 
-def small_train_step(Trainer, cfg, device, deterministic=False):
+def small_train_step(Trainer, cfg, device, deterministic=False, watched=WATCHED):
     """One fp32 training step at the full width on a small batch (2 crops
     of 128x256 with 20 target slots, 8 valid; 2 frame triples of 64x128),
-    weights from seed 0 and draws from seed 1: (losses, the WATCHED
+    weights from seed 0 and draws from seed 1: (losses, the `watched`
     gradients, every updated parameter), on `device`."""
     n_texts = cfg.model.one_former.num_object_queries - cfg.model.text_encoder.n_ctx
     tr = Trainer(cfg, device=device, deterministic=deterministic)
@@ -486,25 +532,128 @@ def small_train_step(Trainer, cfg, device, deterministic=False):
     draws = tr.make_draws(torch.Generator().manual_seed(1), seg_s, seq_s, device)
     _, m = tr.train_step(st, seg_s, seq_s, draws=draws)
     params = dict(st.model.named_parameters())
-    return m, {n: params[n].grad for n in WATCHED}, {n: p.detach() for n, p in params.items()}
+    return m, {n: params[n].grad for n in watched}, {n: p.detach() for n, p in params.items()}
 
 
-def train_deterministic_child(out_path):
-    """The child of phase train_deterministic: one deterministic step,
-    its losses, watched gradients and updated parameters saved to
-    `out_path` as CPU tensors, with the step's seconds."""
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from uni_encoder_tpu_torch.config import Config
+def step_differences(got, ref, watched):
+    """(|loss difference| per term, relative norm of the gradient difference
+    per watched parameter) of two small steps' (losses, gradients)."""
+    return ({k: abs(got[0][k] - r) for k, r in ref[0].items()},
+            {n: ((got[1][n] - ref[1][n]).norm() / ref[1][n].norm()).item() for n in watched})
+
+
+def small_step_errors(phase, got, ref, watched=WATCHED, noise=None):
+    """Losses within atol 1e-4 + rtol 1e-3 and the `watched` gradients
+    within 1e-3 relative norm (cuBLAS/cuDNN sum in other orders than the
+    CPU, or than their deterministic algorithms); returns both. With
+    `noise`, the same step on the CPU in another thread count (so another
+    order of its fp32 sums), a quantity may also differ by up to twice as
+    much as the CPU differs from itself: where the step is ill-conditioned
+    (a near-singular RANSAC plane fit, a decoder's cancelling gradients),
+    that is the part of a difference the port cannot remove."""
+    loss_err, grad_err = step_differences(got, ref, watched)
+    loss_noise, grad_noise = step_differences(noise, ref, watched) if noise else ({}, {})
+    for k, r in ref[0].items():
+        if not loss_err[k] <= max(1e-4 + 1e-3 * abs(r), 2 * loss_noise.get(k, 0.0)):
+            raise AssertionError(f"{phase} {k}: {got[0][k]} against {r} (the CPU against itself: "
+                                 f"{loss_noise.get(k)})")
+    for n in watched:
+        if not grad_err[n] < max(1e-3, 2 * grad_noise.get(n, 0.0)):
+            raise AssertionError(f"{phase} grad {n}: relative error {grad_err[n]} (the CPU against itself: "
+                                 f"{grad_noise.get(n)})")
+    return loss_err, grad_err
+
+
+def start_child(mode, out_path, *args, env=None):
+    """Start this script as a child in `mode` (DETERMINISTIC_CHILD or
+    CPU_STEP_CHILD) writing to `out_path`, its output in `out_path`.log."""
+    with open(out_path + ".log", "w") as log:
+        return subprocess.Popen([sys.executable, os.path.abspath(__file__), mode, out_path, *args], env=env,
+                                stdout=log, stderr=subprocess.STDOUT)
+
+
+def finish_children(children, paths, timeout):
+    """Wait for `children` (killing every one still running if one fails or
+    the time runs out) and load what each saved to its path."""
+    try:
+        for child, path in zip(children, paths):
+            if child.wait(timeout=timeout) != 0:
+                with open(path + ".log") as log:
+                    raise AssertionError(f"child {path} exited {child.returncode}:\n{log.read()[-4000:]}")
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    runs = [torch.load(path) for path in paths]
+    for path in paths:
+        os.remove(path)
+        os.remove(path + ".log")
+    return runs
+
+
+def deterministic_children(paths, configs):
+    """Run this script once per path as a child, all at once
+    (`DETERMINISTIC_CHILD PATH CONFIG...`, CUBLAS_WORKSPACE_CONFIG=:4096:8):
+    each takes one deterministic step per config in turn, saved there.
+    Returns per config the children's runs and whether their losses,
+    gradients and parameters are the same bytes; and the environment's
+    workspace setting."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    loaded = finish_children([start_child(DETERMINISTIC_CHILD, path, *configs, env=env) for path in paths], paths,
+                             timeout=600)
+    out = {}
+    for config in configs:
+        runs = [r[config] for r in loaded]
+        equal = {group: all(runs[0][group][k].numpy().tobytes() == runs[1][group][k].numpy().tobytes()
+                            for k in runs[0][group]) and sorted(runs[0][group]) == sorted(runs[1][group])
+                 for group in ("losses", "grads", "params")}
+        out[config] = (runs, equal)
+    return out, env["CUBLAS_WORKSPACE_CONFIG"]
+
+
+def load_child_config(config):
+    """A child's config argument: a config file, or DEFAULT_CONFIG for the
+    default Swin-T model; and the watched parameters on it."""
+    from uni_encoder_tpu_torch.config import Config, load_config
+
+    cfg = Config() if config == DEFAULT_CONFIG else load_config(config)
+    return cfg, WATCHED_DINAT if cfg.model.backbone.name == "dinat" else WATCHED
+
+
+def train_deterministic_child(out_path, *configs):
+    """The child of phase train_deterministic: per config, one
+    deterministic step, its losses, watched gradients and updated
+    parameters as CPU tensors with the step's seconds, all saved to
+    `out_path`."""
     from uni_encoder_tpu_torch.training.train_step import Trainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
-    losses, grads, params = small_train_step(Trainer, Config(), torch.device("cuda"), deterministic=True)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}  # noqa: E731
-    torch.save({"losses": cpu(losses), "grads": cpu(grads), "params": cpu(params), "seconds": seconds}, out_path)
+    saved = {}
+    for config in configs:
+        cfg, watched = load_child_config(config)
+        t0 = time.perf_counter()
+        losses, grads, params = small_train_step(Trainer, cfg, torch.device("cuda"), deterministic=True,
+                                                 watched=watched)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        saved[config] = {"losses": cpu(losses), "grads": cpu(grads), "params": cpu(params), "seconds": seconds}
+        del losses, grads, params
+    torch.save(saved, out_path)
+
+
+def cpu_step_child(out_path, config, threads):
+    """The child of phase train_backbones: the small step on the CPU at
+    `threads` threads, its losses and watched gradients saved to
+    `out_path`."""
+    from uni_encoder_tpu_torch.training.train_step import Trainer
+
+    torch.set_num_threads(int(threads))
+    cfg, watched = load_child_config(config)
+    m, grads, _ = small_train_step(Trainer, cfg, torch.device("cpu"), watched=watched)
+    torch.save({"losses": {k: float(v) for k, v in m.items()}, "grads": grads}, out_path)
 
 
 def k3_scatter_rows(shapes, off, logits, ref_abs, M):
@@ -739,8 +888,10 @@ def train_entry_phase(dev, smi):
     every 2; the checkpoint loaded by `evaluate_torch.build_model`. The
     peak device memory is reported per iteration (the first holds the
     model's initialisation, and in a process that has not run these shapes
-    yet, cuDNN's benchmarking) and over the run. Returns the kernels'
-    launches over the run."""
+    yet, cuDNN's benchmarking) and over the run. Then `train_torch.main` on
+    configs/cityscapes_dinat.yaml for TRAIN_ENTRY_DINAT_ITERS iterations on
+    the same tree (K4 and K5 60 launches a step). Returns each config's
+    kernel launches over its run."""
     import evaluate_torch
     import train_torch
     from uni_encoder_tpu_torch import kernels
@@ -751,7 +902,14 @@ def train_entry_phase(dev, smi):
     from uni_encoder_tpu_torch.data.train_mappers import build_train_mappers
     from uni_encoder_tpu_torch.inference.fused_postprocess import fused_postprocess_cuda
     from uni_encoder_tpu_torch.ops.ms_deform_attn import ms_deform_attn_fused_backward_cuda, ms_deform_attn_fused_cuda
+    from uni_encoder_tpu_torch.ops.neighborhood_attention import (
+        neighborhood_attention_2d_backward_cuda,
+        neighborhood_attention_2d_cuda,
+    )
 
+    kernel_fns = {"k1": fused_postprocess_cuda, "k2": ms_deform_attn_fused_cuda,
+                  "k3": ms_deform_attn_fused_backward_cuda, "k4": neighborhood_attention_2d_cuda,
+                  "k5": neighborhood_attention_2d_backward_cuda}
     t_phase = time.perf_counter()
     cfg_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), TRAIN_ENTRY_CONFIG)
     work = os.path.join(os.path.dirname(kernels.BUILD_DIR), "train_entry")
@@ -781,7 +939,7 @@ def train_entry_phase(dev, smi):
 
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        reset_launches(fused_postprocess_cuda, ms_deform_attn_fused_cuda, ms_deform_attn_fused_backward_cuda)
+        reset_launches(*kernel_fns.values())
         timings = []
         t0 = time.perf_counter()
         state = train_torch.main(["--config", cfg_path, "--datasets-root", root, "--output-dir", out,
@@ -789,8 +947,7 @@ def train_entry_phase(dev, smi):
                                   "--log-period", "1", "--checkpoint-period", "2"], timings=timings)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        launches = {"k1": fused_postprocess_cuda.launches, "k2": ms_deform_attn_fused_cuda.launches,
-                    "k3": ms_deform_attn_fused_backward_cuda.launches}
+        launches = {k: f.launches for k, f in kernel_fns.items()}
         peak_gb = max(t["peak_gb"] for t in timings)
         with open(os.path.join(out, "metrics.json")) as f:
             records = [json.loads(line) for line in f if line.strip()]
@@ -816,9 +973,8 @@ def train_entry_phase(dev, smi):
                 np.isfinite(r[k]) for r in records for k in ("loss", "loss_seg", "loss_monodepth")),
             "metrics_records": len(records) == TRAIN_ENTRY_ITERS and all(set(r) == METRICS_JSON_KEYS for r in records),
             "step_count": state.step == TRAIN_ENTRY_ITERS and state.opt.count == TRAIN_ENTRY_ITERS,
-            "k1_launches": launches["k1"] == 0,
-            "k2_launches": launches["k2"] == TRAIN_ENTRY_ITERS * enc_layers,
-            "k3_launches": launches["k3"] == TRAIN_ENTRY_ITERS * enc_layers,
+            "launches": launches == {"k1": 0, "k2": TRAIN_ENTRY_ITERS * enc_layers,
+                                     "k3": TRAIN_ENTRY_ITERS * enc_layers, "k4": 0, "k5": 0},
             "checkpoints": all(os.path.isfile(os.path.join(out, f"step_{n}.pt")) for n in (2, 4))
             and pointer == "step_4.pt",
             "config_read_without_pyyaml": "yaml" not in sys.modules,
@@ -829,6 +985,46 @@ def train_entry_phase(dev, smi):
             "loaded_forward_finite": all(bool(torch.isfinite(fwd[k]).all()) for k in ("pred_logits", "pred_masks")),
         }
         ckpt_mb = os.path.getsize(os.path.join(out, pointer)) / 1e6
+        del state, model, fwd, trained, own
+        torch.cuda.empty_cache()
+
+        # the DiNAT-L config through the same entry point and tree: K4 and
+        # K5 on the path, 30 launches each a backbone pass, two a step
+        dinat_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), BACKBONE_CONFIGS["dinat"])
+        dinat_cfg = load_config(dinat_path)
+        dinat_out = os.path.join(work, "run_dinat")
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(*kernel_fns.values())
+        dinat_timings = []
+        t0 = time.perf_counter()
+        dinat_state = train_torch.main(["--config", dinat_path, "--datasets-root", root, "--output-dir", dinat_out,
+                                        "--max-iter", str(TRAIN_ENTRY_DINAT_ITERS), "--batch", str(TRAIN_BATCH),
+                                        "--log-period", "1", "--checkpoint-period", str(TRAIN_ENTRY_DINAT_ITERS)],
+                                       timings=dinat_timings)
+        torch.cuda.synchronize()
+        dinat_run_s = time.perf_counter() - t0
+        dinat_launches = {k: f.launches for k, f in kernel_fns.items()}
+        with open(os.path.join(dinat_out, "metrics.json")) as f:
+            dinat_records = [json.loads(line) for line in f if line.strip()]
+        nat = 2 * sum(dinat_cfg.model.backbone.dinat.depths)
+        dinat_enc = dinat_cfg.model.sem_seg_head.transformer_enc_layers
+        checks.update({
+            "dinat_losses_finite": len(dinat_records) == TRAIN_ENTRY_DINAT_ITERS and all(
+                np.isfinite(r[k]) for r in dinat_records for k in ("loss", "loss_seg", "loss_monodepth")),
+            "dinat_step_count": dinat_state.step == TRAIN_ENTRY_DINAT_ITERS,
+            "dinat_launches": dinat_launches == {"k1": 0, "k2": TRAIN_ENTRY_DINAT_ITERS * dinat_enc,
+                                                 "k3": TRAIN_ENTRY_DINAT_ITERS * dinat_enc,
+                                                 "k4": TRAIN_ENTRY_DINAT_ITERS * nat,
+                                                 "k5": TRAIN_ENTRY_DINAT_ITERS * nat},
+            "dinat_checkpoint": os.path.isfile(os.path.join(dinat_out, f"step_{TRAIN_ENTRY_DINAT_ITERS}.pt")),
+        })
+        dinat = {"config": BACKBONE_CONFIGS["dinat"], "iterations": TRAIN_ENTRY_DINAT_ITERS,
+                 "per_iteration": [{"data_ms": t["data_s"] * 1e3, "step_ms": t["step_s"] * 1e3,
+                                    "checkpoint_s": t["checkpoint_s"], "peak_gb": t["peak_gb"], "loss": r["loss"]}
+                                   for t, r in zip(dinat_timings, dinat_records)],
+                 "run_s": dinat_run_s, "launches": dinat_launches}
+        del dinat_state
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     iterations = [{"data_ms": t["data_s"] * 1e3, "step_ms": t["step_s"] * 1e3,
@@ -841,9 +1037,9 @@ def train_entry_phase(dev, smi):
          stage_ms=stage_ms, peak_memory_gb=peak_gb, tree_write_s=tree_s, run_s=run_s, checkpoint_mb=ckpt_mb,
          build_model_with_checkpoint_s=load_s, launches=launches,
          training_only_keys={p: sum(k.startswith(p) for k in training_only) for p in TRAINING_ONLY_KEYS},
-         metrics=records, checks=checks, seconds=time.perf_counter() - t_phase, card=smi)
+         metrics=records, dinat=dinat, checks=checks, seconds=time.perf_counter() - t_phase, card=smi)
     fail_unless("train_entry", checks)
-    return launches
+    return {TRAIN_ENTRY_CONFIG: launches, BACKBONE_CONFIGS["dinat"]: dinat_launches}
 
 
 def na_bound(B, H, W, nh, dh, kernel):
@@ -1029,6 +1225,321 @@ def k4_phase(dev, smi, usage):
                 pair_device_ms=pair["bf16_device_ms"])
 
 
+def k5_bound(B, H, W, nh, dh, kernel):
+    """fp32: q, k, v and the output's gradient read once, dq, dk, dv and
+    drpb written once (and the bias table read). The forward's output is
+    not counted: the gradient needs only D = rowsum(dO . O) = sum P (dO . v),
+    which the window walk can form, so reading O (as K5 does) is a choice of
+    this design. Per query, head and window entry 5 dot products or scaled
+    adds over dh (the logit q . k, dP = dO . v, and the dS k, dS q and P dO
+    terms of dq, dk and dv) and 8 softmax operations, on the CUDA cores."""
+    nbytes = (7 * B * H * W * nh * dh + 2 * nh * (2 * kernel - 1) ** 2) * 4
+    flops = B * H * W * nh * kernel * kernel * (10 * dh + 8)
+    return nbytes, flops
+
+
+def k5_check(got, ref, B, H, W, dh):
+    """tests/test_torch_port_cuda.py's tolerance, and the errors: dqkv atol
+    2e-5 + rtol 1e-4 (up to k * k products per element, summed in another
+    order), drpb atol 1e-6 * sqrt(B * H * W * dh) + rtol 1e-4 (each cell
+    sums every query of a head, each term carrying the rounding of a dh-long
+    dot product; where every window is one key the exact sum is 0)."""
+    errs = {}
+    for name, a, b, atol in (("dqkv", got[0], ref[0], 2e-5),
+                             ("drpb", got[1], ref[1], 1e-6 * (B * H * W * dh) ** 0.5)):
+        err = (a - b).abs()
+        errs[name] = {"max_abs_err": err.max().item(), "max_rel_err": (err.max() / b.abs().max()).item()}
+        if bool((err > atol + 1e-4 * b.abs()).any()):
+            raise AssertionError(f"K5 {name} at {(B, H, W)}: {errs[name]}")
+    return errs
+
+
+def flex_backward(qkv, rpb, grad_out, dqkv, scale, kernel):
+    """The library yardstick for K5 at dilation 1 (no repeated keys): the
+    backward of torch.compile(flex_attention) (`flex_neighborhood`) for dq,
+    dk and dv (its bias is a captured table: no drpb), timed alone on a
+    retained graph, so compiled without donated buffers; its caches go
+    under build/. Returns the library fields, with the error instead of
+    `ms` if it does not compile (a yardstick only: the row then says null)."""
+    from torch._functorch import config as functorch_config
+
+    from uni_encoder_tpu_torch import kernels
+
+    build = os.path.dirname(kernels.BUILD_DIR)
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", os.path.join(build, "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(build, "triton"))
+    library = {"call": "backward of torch.compile(flex_attention), the window as mask_mod and rpb as score_mod: "
+                       "dq, dk, dv"}
+    try:
+        with functorch_config.patch(donated_buffer=False):
+            leaf = qkv.clone().requires_grad_(True)
+            t0 = time.perf_counter()
+            out, _ = flex_neighborhood(leaf[:, :, :, 0] * scale, leaf[:, :, :, 1], leaf[:, :, :, 2], rpb, kernel, 1)
+            grad = torch.autograd.grad(out, leaf, grad_out, retain_graph=True)[0]
+            torch.cuda.synchronize()
+            library["compile_s"] = time.perf_counter() - t0
+            library["max_abs_err_vs_k5_dqkv"] = (grad - dqkv).abs().max().item()
+            library["ms"] = cuda_ms(lambda: torch.autograd.grad(out, leaf, grad_out, retain_graph=True), 10)
+    except Exception as e:  # a yardstick only: its failure is reported, and the row says null
+        library["error"] = f"{type(e).__name__}: {str(e)[:400]}"
+    return library
+
+
+def k5_phase(dev, smi, usage):
+    """K5, the backward of neighborhood attention, against autograd of the
+    plain version at every NAT-layer shape of a DiNAT-L training step
+    (configs/cityscapes_dinat.yaml; fp32): the crop pass (B=2, 512x1024)
+    and the triples' pass (B=6: three 192x512 frames of 2 items; most of
+    its sub-grids are shorter than the kernel), and at K4_EDGE_SHAPES; a
+    rerun byte-identical; each shape's kernel time (20 calls back to back,
+    host included, and the device alone, replayed from a CUDA graph), plain
+    time (autograd's backward alone), bound, blocks, shared memory and
+    registers per block (`usage`: ptxas's, per kernel); each pass's 30
+    launches summed; and torch.compile(flex_attention)'s backward (dq, dk,
+    dv; a library call timed here and used nowhere in the port) at stage 0,
+    dilation 1. Returns the kernels line's fields at the crop's stage 0,
+    dilation 1."""
+    from uni_encoder_tpu_torch import kernels
+    from uni_encoder_tpu_torch.config import load_config
+    from uni_encoder_tpu_torch.ops.neighborhood_attention import (
+        _k5_launch_shape,
+        neighborhood_attention_2d_backward_cuda,
+        neighborhood_attention_2d_cuda,
+        neighborhood_attention_2d_plain,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), BACKBONE_CONFIGS["dinat"]))
+    kernel = cfg.model.backbone.dinat.kernel_size
+    TH, TW = cfg.input.seg_crop_train
+    SH, SW = cfg.input.depth_hw_train
+    crop = dinat_frame_layers(cfg.model, TH, TW, B=TRAIN_BATCH)
+    triples = dinat_frame_layers(cfg.model, SH, SW, B=3 * TRAIN_BATCH)  # forward_sequence_train: one pass, 3 frames
+    lib = kernels.load("neighborhood_attention_backward")
+    regs = {k: max(u["registers"] for name, u in usage.items() if k in name) for k in K5_KERNELS}
+    g = torch.Generator(device="cpu").manual_seed(5)
+
+    def measure(shape, kernel):
+        B, H, W, nh, dh, d = shape
+        qkv = torch.randn(B, H, W, 3, nh, dh, generator=g).to(dev)
+        rpb = (torch.randn(nh, 2 * kernel - 1, 2 * kernel - 1, generator=g) * 0.5).to(dev)
+        grad_out = torch.randn(B, H, W, nh, dh, generator=g).to(dev)
+        scale = dh ** -0.5
+        with torch.no_grad():
+            out = neighborhood_attention_2d_cuda(qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2], rpb, kernel, d,
+                                                 scale)
+
+        def call():
+            return neighborhood_attention_2d_backward_cuda(qkv, rpb, out, grad_out, kernel, d, scale)
+
+        got = call()
+        leaves = [qkv.clone().requires_grad_(True), rpb.clone().requires_grad_(True)]
+        plain_out = neighborhood_attention_2d_plain(leaves[0][:, :, :, 0], leaves[0][:, :, :, 1],
+                                                    leaves[0][:, :, :, 2], leaves[1], kernel, d, scale)
+
+        def plain():
+            return torch.autograd.grad(plain_out, leaves, grad_out, retain_graph=True)
+
+        row = {"errors": k5_check(got, plain(), B, H, W, dh)}
+        again = call()
+        if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+            raise AssertionError(f"K5 rerun at {shape} kernel {kernel} is not byte-identical")
+        row["max_abs_err"] = max(e["max_abs_err"] for e in row["errors"].values())
+        row["ms"] = cuda_ms(call, 20)
+        row["device_ms"] = cuda_graph_ms(call, 20)
+        row["plain_ms"] = cuda_ms(plain, 2)
+        blocks, threads, smem_a, smem_b = _k5_launch_shape(lib, B, H, W, nh, kernel, d)
+        row["launch"] = {"blocks": blocks, "threads": threads, "query_pass_smem_bytes": smem_a,
+                         "key_pass_smem_bytes": smem_b, "registers_per_thread": regs}
+        row.update(bound_fields(*k5_bound(B, H, W, nh, dh, kernel)))
+        if shape == crop[0] and kernel == cfg.model.backbone.dinat.kernel_size:
+            stage0.extend((qkv, rpb, grad_out, got, scale))
+        del out, got, again, leaves, plain_out
+        return row
+
+    stage0 = []
+    shapes = {str(shape): measure(shape, kernel) for shape in sorted(set(crop) | set(triples), reverse=True)}
+    edges = {str(e): measure(e[:6], e[6]) for e in K4_EDGE_SHAPES}
+    torch.cuda.empty_cache()
+    passes = {name: {"layers": len(ls), **{k: sum(shapes[str(s)][k] for s in ls)
+                                           for k in ("ms", "device_ms", "plain_ms", "bound_ms")}}
+              for name, ls in (("crop", crop), ("triples", triples))}
+
+    qkv, rpb, grad_out, got, scale = stage0
+    library = flex_backward(qkv, rpb, grad_out, got[0], scale, kernel)
+    del stage0, qkv, rpb, grad_out, got
+    torch.cuda.empty_cache()
+    emit("k5_vs_plain", kernel=kernel, dtype="float32", shapes=shapes, edge_shapes_with_kernel=edges, **passes,
+         library_stage0_dilation1=library, plain="autograd backward of neighborhood_attention_2d_plain",
+         tolerance="dqkv atol 2e-5 + rtol 1e-4; drpb atol 1e-6 * sqrt(B*H*W*dh) + rtol 1e-4; reruns byte-identical",
+         seconds=time.perf_counter() - t_phase, card=smi)
+    s0 = shapes[str(crop[0])]
+    rows = list(shapes.values()) + list(edges.values())
+    return dict(max_abs_err=max(r["max_abs_err"] for r in rows), ms=s0["ms"], plain_ms=s0["plain_ms"],
+                bound_ms=s0["bound_ms"], bound_by=s0["bound_by"], library_ms=library.get("ms"),
+                shape=list(crop[0][:5]) + [1], device_ms=s0["device_ms"], deterministic=True,
+                crop_ms=passes["crop"]["ms"], crop_device_ms=passes["crop"]["device_ms"],
+                crop_plain_ms=passes["crop"]["plain_ms"], crop_bound_ms=passes["crop"]["bound_ms"],
+                triples_ms=passes["triples"]["ms"], triples_device_ms=passes["triples"]["device_ms"],
+                triples_plain_ms=passes["triples"]["plain_ms"], triples_bound_ms=passes["triples"]["bound_ms"])
+
+
+def train_backbones_phase(dev, smi, kernel_fns, dinat_deterministic, workspace):
+    """A full-width training step on each of configs/cityscapes_{r18,
+    convnext,dinat}.yaml: fp32, TF32 off, a synthetic batch of TRAIN_BATCH
+    512x1024 crops and TRAIN_BATCH 192x512 triples, random weights from
+    seed 0; one warm-up step (its peak memory holds cuDNN's benchmarking),
+    N_TRAIN_BACKBONE_TIMED timed (their peak is the steady one), one
+    profiled. Fails unless the losses are finite, the parameters moved and
+    the launches per step are exact (K2 and K3 6, K1 0, K4 and K5 60 on
+    DiNAT-L, 0 on the others); on ResNet-18 the backbone's BatchNorm
+    statistics must stay as stored. On DiNAT-L, one small step on the card
+    against the CPU with the same draws (as train_reference_small, each
+    quantity also allowed twice the difference between the CPU's step at
+    its thread count and at one thread; the one-thread step runs in a child
+    process on one core from the start of the phase, beside the card's
+    steps), and `dinat_deterministic`, the two deterministic steps that
+    phase train_deterministic's children took on that config (their runs
+    and byte equality), against the card's small step. Returns each
+    config's launches over its timed steps."""
+    from uni_encoder_tpu_torch import kernels
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    noise_path = os.path.join(os.path.dirname(kernels.BUILD_DIR), "train_dinat_cpu_1_thread.pt")
+    noise_child = start_child(CPU_STEP_CHILD, noise_path, os.path.join(here, BACKBONE_CONFIGS["dinat"]), "1")
+    try:
+        return train_backbones_steps(dev, smi, kernel_fns, dinat_deterministic, workspace, noise_child, noise_path)
+    finally:
+        if noise_child.poll() is None:
+            noise_child.kill()
+            noise_child.wait()
+
+
+def train_backbones_steps(dev, smi, kernel_fns, dinat_deterministic, workspace, noise_child, noise_path):
+    """train_backbones_phase's steps, with its one-thread CPU child running."""
+    from uni_encoder_tpu_torch.config import load_config
+    from uni_encoder_tpu_torch.training.train_step import Trainer
+
+    launched = {}
+    for name, path in BACKBONE_CONFIGS.items():
+        t_phase = time.perf_counter()
+        full_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), path)
+        cfg = load_config(full_path)
+        n_texts = cfg.model.one_former.num_object_queries - cfg.model.text_encoder.n_ctx
+        trainer = Trainer(cfg, device=dev)
+        t0 = time.perf_counter()
+        state = trainer.init(seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        seg_b, seq_b = train_batches(0, TRAIN_BATCH, cfg.input.seg_crop_train, cfg.input.depth_hw_train,
+                                     TRAIN_SLOTS, TRAIN_VALID, n_texts, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        named = dict(state.model.named_parameters())
+        params0 = {n: p.detach().clone() for n, p in named.items() if n.startswith("backbone.")}
+        stats0 = {n: b.clone() for n, b in state.model.named_buffers() if "running_" in n}
+
+        def step():
+            return trainer.train_step(state, seg_b, seq_b, gen)[1]
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        step()  # warm-up: cuDNN's benchmark of every convolution, the allocator
+        torch.cuda.synchronize()
+        warmup_ms = (time.perf_counter() - t0) * 1e3
+        cold_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(*kernel_fns.values())
+        wall_ms, event_ms, metrics = [], [], []
+        for _ in range(N_TRAIN_BACKBONE_TIMED):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            metrics.append(step())
+            end.record()
+            torch.cuda.synchronize()
+            wall_ms.append((time.perf_counter() - t0) * 1e3)
+            event_ms.append(start.elapsed_time(end))
+        launched[name] = {k: f.launches for k, f in kernel_fns.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        prof = profile_device(step, 1, float(np.median(wall_ms)))
+        enc = cfg.model.sem_seg_head.transformer_enc_layers
+        nat = 2 * sum(cfg.model.backbone.dinat.depths) if name == "dinat" else 0  # the crop pass and the triples'
+        want = {"k1": 0, "k2": enc, "k3": enc, "k4": nat, "k5": nat}
+        losses = {k: [float(m[k]) for m in metrics] for k in metrics[0]}
+        stats = dict(state.model.named_buffers())
+        backbone_stats = [n for n in stats0 if n.startswith("backbone.")]
+        checks = {
+            "losses_finite": all(np.isfinite(v).all() for v in losses.values()),
+            "launches": launched[name] == {k: n * N_TRAIN_BACKBONE_TIMED for k, n in want.items()},
+            "backbone_params_moved": sum(not torch.equal(named[n], v) for n, v in params0.items())
+            > 0.9 * len(params0),
+            "decoder_bn_stats_moved": all(not torch.equal(stats[n], v) for n, v in stats0.items()
+                                          if not n.startswith("backbone.")),
+            "step_count": state.step == N_TRAIN_BACKBONE_TIMED + 2,
+        }
+        if name == "resnet":  # the JAX ResNet's batch_stats never move
+            checks["backbone_bn_stats_as_stored"] = bool(backbone_stats) and all(
+                torch.equal(stats[n], stats0[n]) for n in backbone_stats)
+        fields = {}
+        del trainer, state, named, params0, stats0, stats, seg_b, seq_b, metrics
+        torch.cuda.empty_cache()
+        if name == "dinat":
+            # the card against the CPU on a small step, the same weights and
+            # draws; and the CPU against itself at one thread (the child's):
+            # on this random DiNAT-L the RANSAC ground-plane fit (condition
+            # numbers to 4e6) and the pose and motion decoders' gradients
+            # move by up to 2% and 4% with the order of fp32 sums alone
+            watched = WATCHED_DINAT
+            small = {}
+            for dname, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+                m, grads, _ = small_train_step(Trainer, cfg, d, watched=watched)
+                small[dname] = ({k: float(v) for k, v in m.items()}, {n: v.cpu() for n, v in grads.items()})
+                del m, grads
+            t0 = time.perf_counter()
+            (one_thread,) = finish_children([noise_child], [noise_path], timeout=600)
+            noise_wait_s = time.perf_counter() - t0
+            noise = (one_thread["losses"], one_thread["grads"])
+            loss_err, grad_err = small_step_errors("train_backbones dinat small", small["cuda"], small["cpu"],
+                                                   watched, noise)
+            noise_loss, noise_grad = step_differences(noise, small["cpu"], watched)
+            # two deterministic steps in two processes: the same bytes
+            runs, equal = dinat_deterministic
+            det = ({k: float(v) for k, v in runs[0]["losses"].items()}, runs[0]["grads"])
+            det_loss_err, det_grad_err = small_step_errors("train_backbones dinat deterministic", det,
+                                                           small["cuda"], watched, noise)
+            checks.update({f"deterministic_{k}_byte_equal": v for k, v in equal.items()})
+            fields = {"reference_small": {"segmentation": [TRAIN_BATCH, 128, 256, 3],
+                                          "sequence": [TRAIN_BATCH, 3, 64, 128, 3], "loss_abs_err": loss_err,
+                                          "grad_relative_norm_err": grad_err,
+                                          "cpu_threads": [torch.get_num_threads(), 1],
+                                          "one_thread_child_wait_s": noise_wait_s,
+                                          "cpu_vs_cpu_loss_abs_err": noise_loss,
+                                          "cpu_vs_cpu_grad_relative_norm_err": noise_grad,
+                                          "tolerance": "losses atol 1e-4 + rtol 1e-3; gradients |cuda - cpu| / "
+                                                       "|cpu| < 1e-3; or within twice the CPU's own difference "
+                                                       "at the other thread count"},
+                      "deterministic": {"children": len(runs), "in_phase": "train_deterministic",
+                                        "cublas_workspace_config": workspace,
+                                        "child_step_s": [r["seconds"] for r in runs], "byte_equal": equal,
+                                        "vs_default_step": {"loss_abs_err": det_loss_err,
+                                                            "grad_relative_norm_err": det_grad_err}}}
+            del small, runs, dinat_deterministic
+        emit("train_backbones", config=path, backbone=name, dtype="float32", tf32=False,
+             batch={"segmentation": [TRAIN_BATCH, *cfg.input.seg_crop_train, 3],
+                    "sequence": [TRAIN_BATCH, 3, *cfg.input.depth_hw_train, 3], "target_slots": TRAIN_SLOTS,
+                    "valid": TRAIN_VALID, "texts": n_texts},
+             init_s=init_s, warmup_ms=warmup_ms, steps_timed=N_TRAIN_BACKBONE_TIMED, step_wall_ms=wall_ms,
+             step_event_ms=event_ms, kernel_ms_per_step=prof["kernel_ms"],
+             busy_share_untraced=prof["busy_share_untraced"], kernel_launches_per_step=prof["kernel_launches"],
+             top_kernels_ms_per_step=prof["top_kernels_ms"], launches=launched[name],
+             cold_step_peak_memory_gb=cold_peak_gb, steady_peak_memory_gb=peak_gb, losses=losses, checks=checks,
+             **fields, seconds=time.perf_counter() - t_phase, card=smi)
+        fail_unless(f"train_backbones {name}", checks)
+    return launched
+
+
 def backbones_phase(dev, smi, kernel_fns):
     """The three backbone configs (read by the port's YAML reader) at full
     width and depth, random weights from seed 0 (class head x8), bf16:
@@ -1062,8 +1573,8 @@ def backbones_phase(dev, smi, kernel_fns):
         thing = torch.isin(torch.arange(cfg.sem_seg_head.num_classes), torch.arange(11, 19)).to(dev)
         kinds = {"segmentation": lambda: serve_segmentation(model, images, tokens, thing),
                  "sequence": lambda: serve_sequence(model, cur, prev)}
-        want = {"segmentation": {"k1": 1, "k2": enc_layers, "k3": 0, "k4": nat_layers},
-                "sequence": {"k1": 0, "k2": 0, "k3": 0, "k4": nat_layers}}
+        want = {"segmentation": {"k1": 1, "k2": enc_layers, "k3": 0, "k4": nat_layers, "k5": 0},
+                "sequence": {"k1": 0, "k2": 0, "k3": 0, "k4": nat_layers, "k5": 0}}
         fields, checks, launched[name] = {}, {}, {}
         for kind, fn in kinds.items():
             t0 = time.perf_counter()
@@ -1195,7 +1706,10 @@ def main():
         ms_deform_attn_fused_cuda,
         ms_deform_attn_fused_plain,
     )
-    from uni_encoder_tpu_torch.ops.neighborhood_attention import neighborhood_attention_2d_cuda
+    from uni_encoder_tpu_torch.ops.neighborhood_attention import (
+        neighborhood_attention_2d_backward_cuda,
+        neighborhood_attention_2d_cuda,
+    )
     from uni_encoder_tpu_torch.training.matcher import assign_on_host
     from uni_encoder_tpu_torch.training.train_step import Trainer
 
@@ -1222,17 +1736,22 @@ def main():
     k1_frames = ptxas_stack_frames(kernels.build_log_path("fused_postprocess"), "fused_kernel")
     k4_usage = ptxas_usage(kernels.build_log_path("neighborhood_attention"), "na2d_kernel")
     k4_frames = ptxas_stack_frames(kernels.build_log_path("neighborhood_attention"), "na2d_kernel")
+    k5_usage = ptxas_usage(kernels.build_log_path("neighborhood_attention_backward"), "na2d_bwd")
     k1_hmma = sass_count(kernels.library_path("fused_postprocess"), "HMMA")
     # K4's fp32 kernel runs on CUDA cores: every HMMA is the bf16 kernel's
     k4_hmma = sass_count(kernels.library_path("neighborhood_attention"), "HMMA")
     emit("build", seconds=time.perf_counter() - t0, per_source=secs, ptxas=ptxas,
          k2_stack_frame_bytes=k2_frames, k3_stack_frame_bytes=k3_frames, k1_stack_frame_bytes=k1_frames,
-         k4_stack_frame_bytes=k4_frames, k4_ptxas=k4_usage, k1_sass_hmma=k1_hmma, k4_sass_hmma=k4_hmma)
+         k4_stack_frame_bytes=k4_frames, k4_ptxas=k4_usage, k5_ptxas=k5_usage, k1_sass_hmma=k1_hmma,
+         k4_sass_hmma=k4_hmma)
     for name, frames in (("K2", k2_frames), *((f"K3 {k}", v) for k, v in k3_frames.items()), ("K4", k4_frames)):
         if not frames or any(frames):
             raise AssertionError(f"{name} stack frames {frames}: expected 0 bytes for every instantiation")
     if len(k4_usage) != 2 or any(u.get("spill_bytes") != 0 or "registers" not in u for u in k4_usage.values()):
         raise AssertionError(f"K4's two kernels (bf16, fp32) must build without spills: {k4_usage}")
+    if sorted(k for k in K5_KERNELS if any(k in n for n in k5_usage)) != sorted(K5_KERNELS) or any(
+            u.get("stack_frame") != 0 or u.get("spill_bytes") != 0 or "registers" not in u for u in k5_usage.values()):
+        raise AssertionError(f"K5's three kernels must build with 0-byte stack frames and no spills: {k5_usage}")
     if k1_hmma == 0:
         raise AssertionError("K1's SASS holds no HMMA: the semantic product is not on tensor cores")
     if k4_hmma == 0:
@@ -1373,6 +1892,10 @@ def main():
 
     # ------------------------------------------------- K4 against its plain
     results["k4"] = dict(k4_phase(dev, smi, k4_usage), stack_frame_bytes=max(k4_frames))
+
+    # ------------------------------- K5, K4's backward, against its plain
+    results["k5"] = dict(k5_phase(dev, smi, k5_usage),
+                         stack_frame_bytes=max(u["stack_frame"] for u in k5_usage.values()))
 
     # ------------------------------------------- serve three full-width requests
     cfg = Config().model
@@ -1756,22 +2279,6 @@ def main():
 
     # ---- small input: one training step on the GPU against the CPU path, fp32
     # with TF32 off, the same weights (seed 0) and the same draws
-    def small_step_errors(phase, got, ref):
-        """Losses within atol 1e-4 + rtol 1e-3 and the WATCHED gradients
-        within 1e-3 relative norm (cuBLAS/cuDNN sum in other orders than
-        the CPU, or than their deterministic algorithms); returns both."""
-        loss_err, grad_err = {}, {}
-        for k, r in ref[0].items():
-            if not abs(got[0][k] - r) <= 1e-4 + 1e-3 * abs(r):
-                raise AssertionError(f"{phase} {k}: {got[0][k]} against {r}")
-            loss_err[k] = abs(got[0][k] - r)
-        for n in WATCHED:
-            a, b = got[1][n], ref[1][n]
-            grad_err[n] = ((a - b).norm() / b.norm()).item()
-            if not grad_err[n] < 1e-3:
-                raise AssertionError(f"{phase} grad {n}: relative error {grad_err[n]}")
-        return loss_err, grad_err
-
     small = {}
     for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
         m, grads, _ = small_train_step(Trainer, train_cfg, d)
@@ -1782,24 +2289,22 @@ def main():
          dtype="float32", loss_abs_err=loss_err, grad_relative_norm_err=grad_err,
          tolerance="losses atol 1e-4 + rtol 1e-3; gradients |cuda - cpu| / |cpu| < 1e-3")
 
-    # ---- the same step in two processes, deterministic: the same bytes
+    # ---- the same step in two processes at once, deterministic: the same
+    # bytes; each child then takes the DiNAT-L config's step, which phase
+    # train_backbones holds
     t0 = time.perf_counter()
-    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    torch.cuda.empty_cache()
     paths = [os.path.join(os.path.dirname(kernels.BUILD_DIR), f"train_deterministic_{i}.pt") for i in range(2)]
-    for path in paths:
-        child = subprocess.run([sys.executable, os.path.abspath(__file__), DETERMINISTIC_CHILD, path], env=env,
-                               capture_output=True, text=True, timeout=300)
-        if child.returncode != 0:
-            raise AssertionError(f"train_deterministic child exited {child.returncode}:\n{child.stderr[-4000:]}")
-    runs = [torch.load(path) for path in paths]
-    equal = {group: all(runs[0][group][k].numpy().tobytes() == runs[1][group][k].numpy().tobytes()
-                        for k in runs[0][group]) and sorted(runs[0][group]) == sorted(runs[1][group])
-             for group in ("losses", "grads", "params")}
+    dinat_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), BACKBONE_CONFIGS["dinat"])
+    deterministic, workspace = deterministic_children(paths, (DEFAULT_CONFIG, dinat_path))
+    children_s = time.perf_counter() - t0
+    (runs, equal), dinat_deterministic = deterministic.pop(DEFAULT_CONFIG), deterministic.pop(dinat_path)
     # and a child's deterministic step against this process's default one
     det = ({k: float(v) for k, v in runs[0]["losses"].items()}, runs[0]["grads"])
     det_loss_err, det_grad_err = small_step_errors("train_deterministic", det, small["cuda"])
-    emit("train_deterministic", children=len(paths), cublas_workspace_config=env["CUBLAS_WORKSPACE_CONFIG"],
+    emit("train_deterministic", children=len(paths), concurrent=True, cublas_workspace_config=workspace,
          child_step_s=[r["seconds"] for r in runs], byte_equal=equal,
+         children_s_with_dinat_steps=children_s,
          compared={"losses": len(runs[0]["losses"]), "grads": len(runs[0]["grads"]),
                    "params": len(runs[0]["params"]),
                    "param_elements": sum(v.numel() for v in runs[0]["params"].values())},
@@ -1807,12 +2312,18 @@ def main():
          seconds=time.perf_counter() - t0, card=smi)
     fail_unless("train_deterministic", equal)
     del small, runs
-    for path in paths:
-        os.remove(path)
+
+    # ---------------- training on the ResNet-18, ConvNeXt-L and DiNAT-L configs
+    kernel_fns = {"k1": fused_postprocess_cuda, "k2": ms_deform_attn_fused_cuda,
+                  "k3": ms_deform_attn_fused_backward_cuda, "k4": neighborhood_attention_2d_cuda,
+                  "k5": neighborhood_attention_2d_backward_cuda}
+    train_backbone_launches = train_backbones_phase(dev, smi, kernel_fns, dinat_deterministic, workspace)
+    torch.cuda.empty_cache()
 
     # ---------------- the training entry point: the production config, full
     # width and depth, on a synthetic full-size tree (the train phase's state
-    # is gone: two of its 52 GB training states do not fit the card)
+    # is gone: two of its 52 GB training states do not fit the card), then
+    # the DiNAT-L config (its convolutions' shapes benchmarked above)
     train_entry_launches = train_entry_phase(dev, smi)
     torch.cuda.empty_cache()
 
@@ -1822,20 +2333,21 @@ def main():
     torch.cuda.empty_cache()
 
     # ---------------- the ResNet-18, ConvNeXt-L and DiNAT-L configs, served
-    kernel_fns = {"k1": fused_postprocess_cuda, "k2": ms_deform_attn_fused_cuda,
-                  "k3": ms_deform_attn_fused_backward_cuda, "k4": neighborhood_attention_2d_cuda}
     backbone_launches = backbones_phase(dev, smi, kernel_fns)
 
     print(smi, flush=True)
     rows = []
     # K1 and K2 launches are the served requests' (phase serve), K3's the
     # timed training steps' (phase train); train_entry_launches those of the
-    # train_torch run (phase train_entry), eval_launches those of the two
-    # evaluate_torch runs (phase eval), backbones_launches those of the
-    # three configs' served requests (phase backbones); K4's launches are the
-    # DiNAT config's served requests', both kinds
+    # two train_torch runs (phase train_entry), eval_launches those of the
+    # two evaluate_torch runs (phase eval), backbones_launches those of the
+    # three configs' served requests (phase backbones), train_backbones_launches
+    # those of the three configs' timed training steps (phase
+    # train_backbones); K4's launches are the DiNAT config's served requests',
+    # both kinds, K5's the DiNAT config's timed training steps'
     launches["k3"] = train_launches["k3"]
     launches["k4"] = sum(backbone_launches["dinat"][kind]["k4"] for kind in ("segmentation", "sequence"))
+    launches["k5"] = train_backbone_launches["dinat"]["k5"]
     for key, name, source, replaces in (
         ("k1", "fused_multitask_inference", "uni_encoder_tpu_torch/kernels/csrc/fused_postprocess.cu",
          "uni_encoder_tpu/inference/fused_postprocess.py:61"),
@@ -1845,28 +2357,35 @@ def main():
          "uni_encoder_tpu/training/train_step.py:340"),
         ("k4", "neighborhood_attention_2d", "uni_encoder_tpu_torch/kernels/csrc/neighborhood_attention.cu",
          "uni_encoder_tpu/ops/neighborhood_attention.py:48"),
+        ("k5", "neighborhood_attention_2d_backward",
+         "uni_encoder_tpu_torch/kernels/csrc/neighborhood_attention_backward.cu",
+         "uni_encoder_tpu/training/train_step.py:340"),
     ):
         r = results[key]
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches[key],
-                     "train_entry_launches": train_entry_launches.get(key, 0),
+                     "train_entry_launches": {config: n.get(key, 0) for config, n in train_entry_launches.items()},
                      "eval_launches": {task: n.get(key, 0) for task, n in eval_launches.items()},
                      "backbones_launches": {name: {kind: n[key] for kind, n in per.items()}
                                             for name, per in backbone_launches.items()},
+                     "train_backbones_launches": {name: n[key] for name, n in train_backbone_launches.items()},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r.get("library_ms"),
                      **{k: r[k] for k in ("function_ms", "stack_frame_bytes", "deterministic", "shape", "fp32_ms",
                                           "device_ms", "frame_ms", "frame_device_ms", "frame_plain_ms",
                                           "frame_bound_ms", "pair_ms", "pair_device_ms", "pair_plain_ms",
-                                          "pair_bound_ms") if k in r}})
+                                          "pair_bound_ms", "crop_ms", "crop_device_ms", "crop_plain_ms",
+                                          "crop_bound_ms", "triples_ms", "triples_device_ms", "triples_plain_ms",
+                                          "triples_bound_ms") if k in r}})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == DETERMINISTIC_CHILD:
-        train_deterministic_child(sys.argv[2])
+    if len(sys.argv) >= 4 and sys.argv[1] in (DETERMINISTIC_CHILD, CPU_STEP_CHILD):
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        (train_deterministic_child if sys.argv[1] == DETERMINISTIC_CHILD else cpu_step_child)(*sys.argv[2:])
     else:
         main()

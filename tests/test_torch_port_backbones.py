@@ -275,18 +275,32 @@ def test_config_builds_the_d2_key_set(name):
 
 @pytest.mark.parametrize("name", ["resnet", "convnext", "dinat"])
 def test_train_mode_on_a_new_backbone_raises(name):
-    """Training is ported for Swin only: a model built with is_train on
-    another backbone raises and names the ROADMAP item."""
+    """A model built with is_train on each backbone builds (training is
+    ported for all four) with the JAX copy's stochastic-depth rates, a
+    linspace from 0 to the config's drop_path_rate over all blocks; its
+    backbone raises on keep masks that do not fit its layout (ResNet takes
+    none)."""
     from uni_encoder_tpu_torch import config as TC
     from uni_encoder_tpu_torch.models.oneformer import UniEncoder
 
     cfg = dataclasses.replace(common.make_cfg(TC, name), is_train=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
-        UniEncoder(cfg, device="meta")
+    model = UniEncoder(cfg, device="meta")
+    if name == "resnet":
+        masks = torch.ones(4, 1)
+    else:
+        c = getattr(cfg.backbone, name)
+        blocks = [m for m in model.backbone.modules() if hasattr(m, "drop_path_rate")]
+        np.testing.assert_allclose([m.drop_path_rate for m in blocks], np.linspace(0.0, c.drop_path_rate,
+                                                                                    sum(c.depths)))
+        masks = torch.ones(sum(c.depths) + 1, 2, 1)
+    with pytest.raises(ValueError, match="drop"):
+        model.backbone(torch.zeros(1, 32, 32, 3), masks)
 
 
 @pytest.mark.parametrize("name", ["convnext", "dinat"])
 def test_drop_masks_are_refused(name):
+    """Keep masks for another number of blocks than the backbone's are
+    refused (a mask per block: `Trainer.make_draws` lays them out)."""
     model = _port_backbone(name)
-    with pytest.raises(NotImplementedError, match="drop-path"):
+    with pytest.raises(ValueError, match="drop-path"):
         model(torch.zeros(1, 32, 32, 3), torch.ones(8, 2, 1))

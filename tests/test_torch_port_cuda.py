@@ -362,16 +362,141 @@ def test_neighborhood_attention_kernel_rejects_bad_inputs(cuda):
 
 
 def test_neighborhood_attention_kernel_has_no_backward(cuda):
-    """With grad mode on and an input that requires grad, K4 raises instead
-    of returning an output without a grad_fn; under no_grad it runs."""
-    from uni_encoder_tpu_torch.ops.neighborhood_attention import neighborhood_attention_2d
+    """K4 alone has no backward: with grad mode on and an input that
+    requires grad, its wrapper and `neighborhood_attention_2d` raise instead
+    of returning an output without a grad_fn; under no_grad they run.
+    `neighborhood_attention_2d_qkv` pairs K4 with K5, and in bf16, which K5
+    does not take, raises."""
+    from uni_encoder_tpu_torch.ops.neighborhood_attention import (
+        neighborhood_attention_2d,
+        neighborhood_attention_2d_cuda,
+        neighborhood_attention_2d_qkv,
+    )
 
     q, k, v, rpb = _na_qkv(1, 1, 8, 8, 2, 32, 3, cuda, torch.float32)
     rpb = rpb.clone().requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        neighborhood_attention_2d(q, k, v, rpb, 3)
+    for fn in (neighborhood_attention_2d_cuda, neighborhood_attention_2d):
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(q, k, v, rpb, 3)
     with torch.no_grad():
         assert neighborhood_attention_2d(q, k, v, rpb, 3).grad_fn is None
+    qkv = torch.stack((q, k, v), dim=3)
+    assert neighborhood_attention_2d_qkv(qkv, rpb, 3).grad_fn is not None
+    with pytest.raises(ValueError, match="fp32 only"):
+        neighborhood_attention_2d_qkv(qkv.bfloat16(), rpb.bfloat16(), 3)
+
+
+# ------------------------------------------------------------------------ K5
+# K5's tolerance against autograd of the plain version, both fp32 on the
+# card: dqkv sums up to k * k (times a repeat count) products per element in
+# another order, atol 2e-5 + rtol 1e-4; a drpb cell sums every query of a
+# head (n = B * H * W terms, each carrying the rounding of a 32-long dot
+# product; where every window is one key the exact sum is 0), atol
+# 1e-6 * sqrt(32 n) + rtol 1e-4
+def _k5_case(seed, B, H, W, nh, kernel, device):
+    rng = np.random.RandomState(seed)
+    qkv = torch.from_numpy(rng.randn(B, H, W, 3, nh, 32).astype(np.float32)).to(device)
+    rpb = torch.from_numpy((0.5 * rng.randn(nh, 2 * kernel - 1, 2 * kernel - 1)).astype(np.float32)).to(device)
+    grad_out = torch.from_numpy(rng.randn(B, H, W, nh, 32).astype(np.float32)).to(device)
+    return qkv, rpb, grad_out
+
+
+def _k5_check(got, ref, B, H, W):
+    torch.testing.assert_close(got[0], ref[0], atol=2e-5, rtol=1e-4)
+    torch.testing.assert_close(got[1], ref[1], atol=1e-6 * (32 * B * H * W) ** 0.5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,H,W,nh,kernel,dilation", [
+    (2, 128, 256, 6, 7, 1), (2, 128, 256, 6, 7, 20),  # a DiNAT-L training crop's stage 0 (6-row sub-grids at 20)
+    (2, 64, 128, 12, 7, 10), (2, 32, 64, 24, 7, 4), (2, 16, 32, 48, 7, 2),  # its stages 1-3
+    (6, 48, 128, 6, 7, 20), (6, 12, 32, 24, 7, 3), (6, 6, 16, 48, 7, 2),  # the 192x512 triples' pass: repeats
+    (2, 13, 21, 3, 7, 1), (2, 13, 21, 3, 7, 2), (2, 19, 27, 3, 5, 1), (2, 17, 9, 3, 3, 1),  # ragged tiles
+    (2, 5, 11, 3, 3, 3), (2, 5, 11, 3, 7, 12), (2, 3, 64, 3, 7, 4), (2, 20, 96, 3, 7, 4),  # short sub-grids
+    (2, 21, 30, 3, 9, 1), (2, 40, 45, 3, 13, 3),  # kernels past 7
+])
+def test_neighborhood_attention_backward_kernel_matches_plain(cuda, B, H, W, nh, kernel, dilation):
+    """K5 against autograd of the plain version on the same qkv, rpb and
+    grad_out, with the module's scale: DiNAT-L training shapes (the crop's
+    at B = 2, the sequence pass's three frames at B = 6) and edge shapes."""
+    from uni_encoder_tpu_torch.ops.neighborhood_attention import (
+        neighborhood_attention_2d_backward_cuda,
+        neighborhood_attention_2d_backward_plain,
+        neighborhood_attention_2d_cuda,
+    )
+
+    qkv, rpb, grad_out = _k5_case(H * W + dilation, B, H, W, nh, kernel, cuda)
+    scale = 32 ** -0.5
+    with torch.no_grad():
+        out = neighborhood_attention_2d_cuda(qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2], rpb, kernel, dilation,
+                                             scale)
+    n0 = neighborhood_attention_2d_backward_cuda.launches
+    got = neighborhood_attention_2d_backward_cuda(qkv, rpb, out, grad_out, kernel, dilation, scale)
+    assert neighborhood_attention_2d_backward_cuda.launches == n0 + 1
+    ref = neighborhood_attention_2d_backward_plain(qkv, rpb, grad_out, kernel, dilation, scale)
+    _k5_check(got, ref, B, H, W)
+
+
+def test_neighborhood_attention_backward_kernel_reruns_byte_identical(cuda):
+    """No atomics and a fixed order of every sum: three runs of K5 at the
+    triples' stage 0 at dilation 20 (B = 6, 48x128, 6 heads: sub-grids of 2
+    and 3 rows) give the same bytes."""
+    from uni_encoder_tpu_torch.ops.neighborhood_attention import (
+        neighborhood_attention_2d_backward_cuda,
+        neighborhood_attention_2d_cuda,
+    )
+
+    qkv, rpb, grad_out = _k5_case(9, 6, 48, 128, 6, 7, cuda)
+    with torch.no_grad():
+        out = neighborhood_attention_2d_cuda(qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2], rpb, 7, 20)
+    runs = [neighborhood_attention_2d_backward_cuda(qkv, rpb, out, grad_out, 7, 20) for _ in range(3)]
+    assert all(torch.equal(runs[0][i], r[i]) for r in runs[1:] for i in range(2))
+
+
+def test_neighborhood_attention_autograd_runs_k4_then_k5(cuda):
+    """`neighborhood_attention_2d_qkv` under autograd: K4's output (the
+    no-grad path's bytes), one K5 launch in backward, and the gradients of
+    K5 called directly. `neighborhood_attention_2d` (q, k and v apart)
+    under autograd raises and names the qkv entry."""
+    from uni_encoder_tpu_torch.ops.neighborhood_attention import (
+        neighborhood_attention_2d,
+        neighborhood_attention_2d_backward_cuda,
+        neighborhood_attention_2d_cuda,
+        neighborhood_attention_2d_qkv,
+    )
+
+    qkv, rpb, grad_out = _k5_case(4, 2, 24, 40, 6, 7, cuda)
+    with torch.no_grad():
+        served = neighborhood_attention_2d_qkv(qkv, rpb, 7, 3, 0.2)
+        direct = neighborhood_attention_2d_backward_cuda(qkv, rpb, served, grad_out, 7, 3, 0.2)
+    k4, k5 = neighborhood_attention_2d_cuda.launches, neighborhood_attention_2d_backward_cuda.launches
+    leaf, bias = qkv.clone().requires_grad_(True), rpb.clone().requires_grad_(True)
+    out = neighborhood_attention_2d_qkv(leaf, bias, 7, 3, 0.2)
+    assert torch.equal(out, served) and out.grad_fn is not None
+    out.backward(grad_out)
+    assert (neighborhood_attention_2d_cuda.launches, neighborhood_attention_2d_backward_cuda.launches) == (k4 + 1,
+                                                                                                          k5 + 1)
+    assert torch.equal(leaf.grad, direct[0]) and torch.equal(bias.grad, direct[1])
+    q, k, v = (qkv[:, :, :, i].clone().requires_grad_(True) for i in range(3))
+    with pytest.raises(RuntimeError, match="neighborhood_attention_2d_qkv"):
+        neighborhood_attention_2d(q, k, v, bias, 7, 3, 0.2)
+
+
+def test_neighborhood_attention_backward_kernel_rejects_bad_inputs(cuda):
+    from uni_encoder_tpu_torch.ops.neighborhood_attention import neighborhood_attention_2d_backward_cuda
+
+    qkv, rpb, grad_out = _k5_case(0, 1, 8, 8, 2, 3, cuda)
+    out = torch.zeros_like(grad_out)
+    bad = (
+        (qkv.bfloat16(), rpb.bfloat16(), out.bfloat16(), grad_out.bfloat16()),  # fp32 only
+        (qkv.transpose(1, 2), rpb, out, grad_out),  # not contiguous
+        (qkv[..., :16].contiguous(), rpb, out[..., :16].contiguous(), grad_out[..., :16].contiguous()),  # head dim
+        (qkv, rpb[:, :3], out, grad_out),  # rpb shape
+        (qkv, rpb, out[:, :4], grad_out),  # out shape
+        (qkv, rpb.cpu(), out, grad_out),  # device
+    )
+    for args in bad:
+        with pytest.raises(ValueError):
+            neighborhood_attention_2d_backward_cuda(*args, 3, 1)
 
 
 def test_dinat_model_matches_cpu(cuda):

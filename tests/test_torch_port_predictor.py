@@ -198,3 +198,57 @@ def test_per_item_serves_a_predictor_method():
         pred.shutdown()
     assert outs == [{"sum": 6 * k, "info": [{"id": k}]} for k in range(3)]
     assert calls == [(2, 3)] * 4
+
+
+def test_async_batched_predictor_shutdown_resolves_every_future():
+    """Shutdown while the pool fills a batch (batch 4, one item submitted,
+    max_wait_s 1 s): the sentinel ends the batch instead of joining it, the
+    item is served (or, if the loop had not taken it yet, failed) within
+    3 s, the loop ends, and a later submit raises."""
+    import time
+
+    from uni_encoder_tpu_torch.engine.serving import AsyncBatchedPredictor
+
+    pred = AsyncBatchedPredictor(lambda batch: {"y": batch["x"] * 2}, batch_size=4, device="cpu", max_wait_s=1.0)
+    fut = pred.submit({"x": np.float32(3)})
+    time.sleep(0.2)  # the loop holds the item and waits for three more
+    pred.shutdown()
+    try:
+        assert float(fut.result(timeout=3)["y"]) == 6.0
+    except RuntimeError as e:
+        assert "shut down" in str(e)
+    assert not pred._thread.is_alive()
+    with pytest.raises(RuntimeError, match="shutdown"):
+        pred.submit({"x": np.float32(1)})
+
+
+def test_async_batched_predictor_shutdown_fails_queued_items():
+    """Items still queued behind a running batch at shutdown get an
+    exception; the batch in hand is served."""
+    import time
+
+    from uni_encoder_tpu_torch.engine.serving import AsyncBatchedPredictor
+
+    gate, running = threading.Event(), threading.Event()
+
+    def fn(batch):
+        running.set()
+        gate.wait(timeout=30)
+        return {"y": batch["x"]}
+
+    pred = AsyncBatchedPredictor(fn, batch_size=1, device="cpu", max_wait_s=0.01)
+    futs = [pred.submit({"x": i}) for i in range(3)]
+    assert running.wait(timeout=10)
+    stopper = threading.Thread(target=pred.shutdown)
+    stopper.start()
+    deadline = time.monotonic() + 10
+    while not pred._closed and time.monotonic() < deadline:
+        time.sleep(0.01)
+    with pred._lock:  # shutdown fails the queued items under this lock
+        pass
+    gate.set()
+    stopper.join(timeout=10)
+    assert int(futs[0].result(timeout=3)["y"]) == 0
+    for f in futs[1:]:
+        with pytest.raises(RuntimeError, match="shut down"):
+            f.result(timeout=3)

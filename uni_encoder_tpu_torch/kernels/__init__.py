@@ -24,7 +24,8 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "build", "kernels"
 )
-SOURCES = ("fused_postprocess", "ms_deform_attn", "ms_deform_attn_backward", "neighborhood_attention")
+SOURCES = ("fused_postprocess", "ms_deform_attn", "ms_deform_attn_backward", "neighborhood_attention",
+           "neighborhood_attention_backward")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -4,7 +4,9 @@
 
 The stem (7x7/2 conv, BatchNorm, ReLU, 3x3/2 max-pool, stride 4) is an output
 feature beside res2..res5. BasicBlock for depths 18 and 34, BottleneckBlock
-for 50 and 101; BatchNorm uses its stored statistics (`FrozenBatchNorm`).
+for 50 and 101; BatchNorm uses its stored statistics in training too
+(`FrozenBatchNorm(use_running_average=True)`, as the JAX copy builds every
+norm): they never move, while the norms' weights and biases train.
 Feature maps are channels-last (B, H, W, C).
 
 Parameter names follow the reference d2 state dict: `backbone.stem.conv1`
@@ -31,7 +33,7 @@ class ConvBN(Conv2dNHWC):
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1, padding: int = 0):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride, padding=padding, bias=False)
-        self.norm = FrozenBatchNorm(out_channels)
+        self.norm = FrozenBatchNorm(out_channels, use_running_average=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(super().forward(x))

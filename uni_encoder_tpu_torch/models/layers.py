@@ -142,20 +142,25 @@ class FrozenBatchNorm(nn.Module):
     Like d2's `FrozenBatchNorm2d`, its state dict is exactly `weight`,
     `bias`, `running_mean` and `running_var`: no `num_batches_tracked`,
     which the JAX checkpoint reader drops.
+
+    With `use_running_average=True` (the JAX copy's default, which the
+    ResNet backbone keeps in training) the stored statistics are used in
+    both modes and never move; `weight` and `bias` still get gradients.
     """
 
     momentum = 0.9
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    def __init__(self, channels: int, eps: float = 1e-5, use_running_average: bool = False):
         super().__init__()
         self.eps = eps
+        self.use_running_average = use_running_average
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
+        if self.training and not self.use_running_average:
             axes = tuple(range(x.ndim - 1))
             mean = x.mean(dim=axes)
             var = (x * x).mean(dim=axes) - mean * mean
@@ -179,6 +184,12 @@ def drop_path(x: torch.Tensor, rate: float, keep_mask: Optional[torch.Tensor]) -
         return x
     keep = 1.0 - rate
     return x / keep * keep_mask.to(x.dtype).reshape((x.shape[0],) + (1,) * (x.ndim - 1))
+
+
+def check_drop_masks(drop_masks: Optional[torch.Tensor], n_blocks: int) -> None:
+    """A backbone's keep masks are None or one entry per block."""
+    if drop_masks is not None and len(drop_masks) != n_blocks:
+        raise ValueError(f"drop-path keep masks for {len(drop_masks)} blocks, the backbone has {n_blocks}")
 
 
 def random_init_(module: nn.Module, generator: torch.Generator) -> None:

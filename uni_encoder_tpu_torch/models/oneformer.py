@@ -11,8 +11,10 @@ raw token ids. A sequence item's two frames go through the backbone as one
 
 Built with `cfg.is_train`, the model is in train mode: the query decoder
 emits its deep-supervision predictions and the seeded queries, BatchNorm
-uses and updates batch statistics, the Swin backbone takes stochastic-depth
-keep masks (training is ported for Swin only: another backbone raises), `forward_sequence_train` serves the three-frame training window,
+uses and updates batch statistics (the ResNet backbone's keeps its stored
+statistics, as the JAX copy's does), the Swin, ConvNeXt and DiNAT backbones
+take stochastic-depth keep masks, `forward_sequence_train` serves the
+three-frame training window,
 and the model holds the text encoder of the contrastive loss
 (`text_encoder`, `text_projector`, `prompt_ctx`, `logit_scale`, named after
 the reference OneFormer's attributes; `encode_text`). The forwards record
@@ -63,12 +65,8 @@ class SemSegHead(nn.Module):
 
 def build_backbone(cfg: ModelConfig) -> nn.Module:
     """The backbone `cfg.backbone.name` selects, as the JAX package's
-    `build_backbone` builds it. Training is ported for Swin only."""
+    `build_backbone` builds it."""
     name = cfg.backbone.name
-    if cfg.is_train and name != "swin":
-        raise NotImplementedError(
-            f"training on the {name!r} backbone is not ported yet (ROADMAP.md Queue 1 item 10: "
-            "drop-path keep masks for ConvNeXt and DiNAT, and a backward for the neighborhood-attention kernel)")
     if name == "swin":
         c = cfg.backbone.swin
         return SwinTransformer(
@@ -87,11 +85,12 @@ def build_backbone(cfg: ModelConfig) -> nn.Module:
                       out_features=c.out_features)
     if name == "convnext":
         c = cfg.backbone.convnext
-        return ConvNeXt(depths=c.depths, dims=c.dims, layer_scale_init_value=c.layer_scale_init_value)
+        return ConvNeXt(depths=c.depths, dims=c.dims, layer_scale_init_value=c.layer_scale_init_value,
+                        drop_path_rate=c.drop_path_rate)
     if name == "dinat":
         c = cfg.backbone.dinat
         return DiNAT(embed_dim=c.embed_dim, depths=c.depths, num_heads=c.num_heads, kernel_size=c.kernel_size,
-                     dilations=c.dilations, mlp_ratio=c.mlp_ratio)
+                     dilations=c.dilations, mlp_ratio=c.mlp_ratio, drop_path_rate=c.drop_path_rate)
     raise ValueError(f"unknown backbone {name!r}")
 
 

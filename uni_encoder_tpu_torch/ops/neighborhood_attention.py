@@ -22,13 +22,27 @@ clamped sub-grid offset, is added to each logit.
 `neighborhood_attention_2d_plain` is the plain version: the JAX op's loop
 over the k*k window offsets, with index tensors, the logits, the softmax and
 the weighted sum of values all in fp32 and one rounding to the input dtype
-(the JAX op sums the values in the input dtype). On CUDA tensors
-`neighborhood_attention_2d` runs the hand-written kernel K4,
-`kernels/csrc/neighborhood_attention.cu` (`neighborhood_attention_2d_cuda`),
-which has no backward: it raises when autograd would need one. K4 works on
-tiles of one residue class's sub-grid and the halo of keys their windows
-cover, each key once, weighted by how often a window repeats it;
-`_tile_halo` is that arithmetic in Python, for the tests.
+(the JAX op sums the values in the input dtype); its autograd is the plain
+backward (`neighborhood_attention_2d_backward_plain`).
+
+On CUDA tensors `neighborhood_attention_2d` and
+`neighborhood_attention_2d_qkv` (the DiNAT module's call: the qkv
+projection's whole (B, H, W, 3, heads, dh) output) run the hand-written
+kernels. With no gradient to record (serving: no_grad or inference_mode),
+the forward kernel K4 alone, `kernels/csrc/neighborhood_attention.cu`
+(`neighborhood_attention_2d_cuda`), with nothing saved. When autograd needs
+a backward, `neighborhood_attention_2d_qkv` runs
+`NeighborhoodAttention2DFunction` (`neighborhood_attention_2d` raises): K4
+forward, then K5,
+`kernels/csrc/neighborhood_attention_backward.cu`
+(`neighborhood_attention_2d_backward_cuda`), which writes dq, dk and dv into
+one buffer in the qkv layout and drpb; fp32 only (training runs fp32), bf16
+under autograd raises. Both kernels work on tiles of one residue class's
+sub-grid: K4 (and K5's query pass) on the halo of keys a tile's windows
+cover, each key once, weighted by how often a window repeats it
+(`_tile_halo`); K5's key pass on the range of queries whose windows hold a
+key (`_inverse_range`). Those two are the kernels' integer arithmetic in
+Python, for the tests.
 """
 
 from __future__ import annotations
@@ -96,6 +110,20 @@ def _tile_halo(size: int, kernel: int, dilation: int, residue: int, tile: int) -
     return q0, h0, counts
 
 
+def _inverse_range(sub_len: int, kernel: int, key: int) -> Tuple[int, int]:
+    """K5's key pass, along one axis: the sub-grid indices [lo, hi] of the
+    queries whose clamped windows hold sub-grid key `key`. `start` never
+    decreases, so they are one range: [key - k + 1 + k//2, key + k//2]
+    inside, from 0 where the window is clamped at the low edge, to
+    sub_len - 1 at the high edge; the whole sub-grid where it is no longer
+    than the kernel."""
+    if sub_len <= kernel:
+        return 0, sub_len - 1
+    lo = 0 if key - kernel + 1 <= 0 else key - kernel + 1 + kernel // 2
+    hi = sub_len - 1 if key >= sub_len - kernel else min(key + kernel // 2, sub_len - 1)
+    return lo, hi
+
+
 def _check_shapes(q, k, v, rpb, kernel: int, dilation: int) -> None:
     if q.ndim != 5 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share one (B, H, W, heads, dh) shape, got "
@@ -161,12 +189,13 @@ def _check_cuda_args(q, k, v, rpb, kernel: int, dilation: int) -> None:
 
 def neighborhood_attention_2d_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rpb: torch.Tensor,
                                    kernel: int, dilation: int = 1, scale: float = 1.0) -> torch.Tensor:
-    """Launch K4. Counts its launches in `.launches`. It has no backward: with
-    grad mode on and an input that requires grad it raises, rather than
-    return an output without a grad_fn."""
+    """Launch K4. Counts its launches in `.launches`. Alone it has no
+    backward: with grad mode on and an input that requires grad it raises,
+    rather than return an output without a grad_fn
+    (`neighborhood_attention_2d_qkv` pairs it with K5)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, rpb)):
-        raise RuntimeError("the neighborhood-attention kernel (K4) has no backward: call it under "
-                           "torch.no_grad() or torch.inference_mode() (training on DiNAT is not ported)")
+        raise RuntimeError("the neighborhood-attention forward kernel (K4) alone has no backward: call "
+                           "neighborhood_attention_2d_qkv, which pairs it with K5, or run under no_grad")
     _check_cuda_args(q, k, v, rpb, kernel, dilation)
     B, H, W, nh, dh = q.shape
 
@@ -193,9 +222,133 @@ def neighborhood_attention_2d_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Te
 neighborhood_attention_2d_cuda.launches = 0
 
 
+def _check_backward_args(qkv, rpb, out, grad_out, kernel: int, dilation: int) -> None:
+    if qkv.ndim != 6 or qkv.shape[3] != 3:
+        raise ValueError(f"qkv must be (B, H, W, 3, heads, dh), got {tuple(qkv.shape)}")
+    B, H, W, _, nh, dh = qkv.shape
+    _check_shapes(qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2], rpb, kernel, dilation)
+    for t, name in ((qkv, "qkv"), (rpb, "rpb"), (out, "out"), (grad_out, "grad_out")):
+        if not t.is_cuda or t.device != qkv.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {qkv.device}, got {t.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"the backward kernel (K5) is fp32 only (training runs in fp32): {name} is {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if tuple(out.shape) != (B, H, W, nh, dh) or tuple(grad_out.shape) != (B, H, W, nh, dh):
+        raise ValueError(f"out and grad_out must be {(B, H, W, nh, dh)}, got {tuple(out.shape)}, "
+                         f"{tuple(grad_out.shape)}")
+    if dh != KERNEL_HEAD_DIM:
+        raise ValueError(f"the kernel is built for head dim {KERNEL_HEAD_DIM}, got {dh}")
+
+
+def _k5_launch_shape(lib, B: int, H: int, W: int, nh: int, kernel: int, dilation: int) -> Tuple[int, int, int, int]:
+    """(blocks, threads a block, shared memory bytes of the query and of the
+    key pass) of K5's launch, from the kernel's own plan."""
+    fn = lib.na2d_backward_launch_shape
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4
+        fn.restype = ctypes.c_int
+    blocks, threads, smem_a, smem_b = ctypes.c_longlong(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = fn(B, H, W, nh, kernel, dilation, ctypes.byref(blocks), ctypes.byref(threads), ctypes.byref(smem_a),
+            ctypes.byref(smem_b))
+    if rc != 0:
+        raise ValueError(f"the backward kernel (K5) refuses {(B, H, W, nh, kernel, dilation)}: cudaError {rc}")
+    return blocks.value, threads.value, smem_a.value, smem_b.value
+
+
+def neighborhood_attention_2d_backward_cuda(qkv: torch.Tensor, rpb: torch.Tensor, out: torch.Tensor,
+                                            grad_out: torch.Tensor, kernel: int, dilation: int = 1,
+                                            scale: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K5 (three kernels, one call): the gradients of
+    `neighborhood_attention_2d_cuda(qkv[:, :, :, 0], qkv[:, :, :, 1],
+    qkv[:, :, :, 2], rpb, kernel, dilation, scale)`, whose output was `out`,
+    for `grad_out`: (dqkv in qkv's layout, drpb). fp32 only. Counts its
+    calls in `.launches`."""
+    _check_backward_args(qkv, rpb, out, grad_out, kernel, dilation)
+    B, H, W, _, nh, dh = qkv.shape
+
+    from ..kernels import load
+
+    lib = load("neighborhood_attention_backward")
+    blocks = _k5_launch_shape(lib, B, H, W, nh, kernel, dilation)[0]
+    fn = lib.na2d_backward
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    dqkv = torch.empty_like(qkv)
+    drpb = torch.empty_like(rpb)
+    lse = torch.empty((B, H, W, nh), dtype=torch.float32, device=qkv.device)
+    dsum = torch.empty_like(lse)
+    partial = torch.empty((max(blocks, 1), (2 * kernel - 1) ** 2), dtype=torch.float32, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(qkv.data_ptr(), rpb.data_ptr(), out.data_ptr(), grad_out.data_ptr(), dqkv.data_ptr(),
+                drpb.data_ptr(), lse.data_ptr(), dsum.data_ptr(), partial.data_ptr(), B, H, W, nh, dh, kernel,
+                dilation, float(scale), stream)
+    if rc != 0:
+        raise RuntimeError(f"neighborhood_attention backward kernel launch failed: cudaError {rc}")
+    neighborhood_attention_2d_backward_cuda.launches += 1
+    return dqkv, drpb
+
+
+neighborhood_attention_2d_backward_cuda.launches = 0
+
+
+def neighborhood_attention_2d_backward_plain(qkv: torch.Tensor, rpb: torch.Tensor, grad_out: torch.Tensor,
+                                             kernel: int, dilation: int = 1,
+                                             scale: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5's plain version: autograd of `neighborhood_attention_2d_plain` on
+    the three views of `qkv`, for `grad_out`: (dqkv, drpb)."""
+    with torch.enable_grad():
+        qkv, rpb = qkv.detach().requires_grad_(True), rpb.detach().requires_grad_(True)
+        out = neighborhood_attention_2d_plain(qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2], rpb, kernel,
+                                              dilation, scale)
+        return torch.autograd.grad(out, (qkv, rpb), grad_out)
+
+
+class NeighborhoodAttention2DFunction(torch.autograd.Function):
+    """K4 forward and K5 backward, on the qkv projection's whole output:
+    saves qkv, rpb and the output, and returns dqkv (dq scaled, as q is
+    scaled inside) and drpb. fp32 only."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, rpb: torch.Tensor, kernel: int, dilation: int, scale: float) -> torch.Tensor:
+        if qkv.dtype != torch.float32 or rpb.dtype != torch.float32:
+            raise ValueError(f"neighborhood attention under autograd on CUDA is fp32 only (its backward kernel "
+                             f"K5 is fp32; training runs in fp32), got {qkv.dtype}: run bf16 under no_grad")
+        qkv = qkv.contiguous()
+        out = neighborhood_attention_2d_cuda(qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2], rpb, kernel,
+                                             dilation, scale)
+        ctx.save_for_backward(qkv, rpb, out)
+        ctx.geometry = (kernel, dilation, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out: torch.Tensor):
+        qkv, rpb, out = ctx.saved_tensors
+        dqkv, drpb = neighborhood_attention_2d_backward_cuda(qkv, rpb, out, grad_out.contiguous(), *ctx.geometry)
+        return dqkv, drpb, None, None, None
+
+
+def _needs_backward(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def neighborhood_attention_2d_qkv(qkv: torch.Tensor, rpb: torch.Tensor, kernel: int, dilation: int = 1,
+                                  scale: float = 1.0) -> torch.Tensor:
+    """Neighborhood attention on the three slots of `qkv` (B, H, W, 3, heads,
+    dh): K4 for CUDA tensors (with K5 as its backward when autograd needs
+    one), the plain version for CPU tensors."""
+    if qkv.is_cuda and _needs_backward(qkv, rpb):
+        return NeighborhoodAttention2DFunction.apply(qkv, rpb, kernel, dilation, scale)
+    return neighborhood_attention_2d(qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2], rpb, kernel, dilation, scale)
+
+
 def neighborhood_attention_2d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rpb: torch.Tensor,
                               kernel: int, dilation: int = 1, scale: float = 1.0) -> torch.Tensor:
-    """K4 for CUDA tensors, the plain version for CPU tensors."""
+    """K4 for CUDA tensors (under autograd it raises: the backward, K5,
+    takes the qkv layout of `neighborhood_attention_2d_qkv`), the plain
+    version for CPU tensors."""
     if q.is_cuda:
         return neighborhood_attention_2d_cuda(q, k, v, rpb, kernel, dilation, scale)
     return neighborhood_attention_2d_plain(q, k, v, rpb, kernel, dilation, scale)

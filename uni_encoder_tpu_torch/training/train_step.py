@@ -14,10 +14,19 @@ built with `is_train` (it holds the text encoder too), updated in place,
 with its BatchNorm statistics; `TrainState.opt` the optimizer's moments.
 
 Random draws: `Trainer.make_draws` takes every random number of a step from
-one `torch.Generator`, in a fixed order (the Swin keep masks of the
+one `torch.Generator`, in a fixed order (the backbone's keep masks of the
 segmentation and the sequence pass, the criterion's points per prediction
 set, the monodepth noise and RANSAC indices per scale), so that a step is
-reproducible and its draws can be handed to another implementation.
+reproducible and its draws can be handed to another implementation. Keep
+masks, block by block in the backbone's order, rates on a linspace from 0
+to the backbone's `drop_path_rate` over all blocks, a block's mask 1 with
+probability 1 - rate:
+  swin      (blocks, 2, B): the attention branch, then the MLP branch
+  dinat     (blocks, 2, B): the attention branch, then the MLP branch
+  convnext  (blocks, B): the residual branch after LayerScale
+  resnet    None: it has no stochastic depth
+The first block's rate is 0: it ignores its masks (the JAX copy draws none
+for it).
 
 Determinism: `Trainer(cfg, deterministic=True)` takes each step with
 cuDNN's benchmark off, `cudnn.deterministic` on and
@@ -233,14 +242,19 @@ class Trainer:
                    device: torch.device) -> Dict:
         """Every random number of one step, from `generator`, in a fixed
         order; drawn where the generator lives, then moved to `device`."""
-        backbone = self.model_cfg.backbone.swin
-        n_blocks = sum(backbone.depths)
-        rates = torch.linspace(0.0, backbone.drop_path_rate, n_blocks, dtype=torch.float64)
-        keep = (1.0 - rates).to(torch.float32)[:, None, None]
+        name = self.model_cfg.backbone.name
+        backbone = getattr(self.model_cfg.backbone, name)
 
         def keep_masks(batch):
-            u = torch.rand((n_blocks, 2, batch), generator=generator, device=generator.device)
-            return (u < keep.to(u.device)).to(torch.float32).to(device)
+            if name == "resnet":  # no stochastic depth
+                return None
+            n_blocks = sum(backbone.depths)
+            rates = torch.linspace(0.0, backbone.drop_path_rate, n_blocks, dtype=torch.float64)
+            keep = (1.0 - rates).to(torch.float32)[:, None, None]
+            u = torch.rand((n_blocks, 1 if name == "convnext" else 2, batch), generator=generator,
+                           device=generator.device)
+            masks = (u < keep.to(u.device)).to(torch.float32).to(device)
+            return masks[:, 0] if name == "convnext" else masks
 
         B = seg_batch["images"].shape[0]
         Bs, H, W = seq_batch["images"].shape[:3]
