@@ -60,17 +60,19 @@ and the pose and motion decoders' gradients cancel, so the order of fp32
 sums alone moves them by percents) and holds train_deterministic's two
 deterministic steps on that config, whose bytes must be equal.
 
-K5, the backward of K4 (three CUDA kernels: query tiles for dq and the
-log-sum-exp, key tiles gathering dk and dv over each key's range of
-queries, a fixed-order sum of per-block drpb tables), is held in
+K5, the backward of K4 (three CUDA kernels: query tiles for dq, key tiles
+gathering dk and dv over each key's range of queries, both with their
+products on the tensor cores in 3xTF32 and the log-sum-exp K4's fp32 kernel
+wrote, and a fixed-order sum of per-block drpb tables), is held in
 `k5_vs_plain` against autograd of the plain version at every NAT-layer shape
 of a DiNAT-L training step (the crop pass at B=2 over 512x1024, the triples'
-pass at B=6 over 192x512) and at K4_EDGE_SHAPES, fp32: dqkv within atol
-2e-5 + rtol 1e-4, drpb within atol 1e-6 * sqrt(B*H*W*dh) + rtol 1e-4, a rerun
-byte-identical; it reports the kernel, device-only, plain and bound times
-per shape, each pass's 30 launches summed, and the backward of
-torch.compile(flex_attention) at the crop's stage 0, dilation 1 as the
-library yardstick.
+pass at B=6 over 192x512), at K4_EDGE_SHAPES and at K5_STRESS_SHAPE (q and k
+4x larger: logits up to ~80, where one TF32 product per term would miss the
+tolerance a thousandfold), fp32: dqkv within atol 2e-5 + rtol 1e-4, drpb
+within atol 1e-6 * sqrt(B*H*W*dh) + rtol 1e-4, a rerun byte-identical; it
+reports the kernel, device-only, plain and bound times per shape, each
+pass's 30 launches summed, and the backward of torch.compile(flex_attention)
+at the crop's stage 0, dilation 1 as the library yardstick.
 
 K4, dilated neighborhood attention, is held against its plain version in
 `k4_vs_plain` at every NAT-layer shape of a DiNAT-L backbone pass
@@ -81,7 +83,10 @@ and 10, 64x128 with 24 at 1 to 4, 32x64 with 48 at 1 and 2) and over a
 5 and 10, 12x32 at 1 to 4, 6x16 at 1 and 2; most of these sub-grids are
 shorter than the kernel, so the clamped windows repeat keys), and at
 K4_EDGE_SHAPES (ragged tiles, sub-grids of one key, kernels 3 and 5), in
-bf16 and fp32, reruns byte-identical; it reports each shape's kernel time
+bf16 and fp32, reruns byte-identical; at every fp32 shape the log-sum-exp
+K4 writes for K5 (its optional `lse` output) against torch.logsumexp of the
+plain version's logits, repeated keys counted, and the output with it
+byte-equal to the output without; it reports each shape's kernel time
 twice (20 calls back to back, host included as a caller sees it, and the
 device alone, the calls replayed from a CUDA graph), the plain and bound
 times, the launch's blocks, shared memory and registers per block, the sums
@@ -123,12 +128,12 @@ TF32 tensor cores, so its bound counts that product at the TF32 rate; the
 all-CUDA-core bound is reported beside it. K4's bf16 bound counts the
 logits q . k (bf16 products summed in fp32) at the bf16 tensor-core rate
 and the weighted sum of values and the softmax at the fp32 rate; K5's
-(fp32) counts all of its work at the fp32 rate. The build phase reports
+(fp32) counts all of its work at the fp32 rate (its bytes bind either way). The build phase reports
 ptxas's stack-frame bytes for each kernel (K2, each of K3's three kernels,
 both of K4's, bf16 and fp32, and each of K5's three must have none, and
-K4's and K5's no spill) and the HMMA counts of K1's and K4's SASS (each
-must have some: K1's semantic product and K4's bf16 logits and P . V run on
-tensor cores).
+K4's and K5's no spill) and the HMMA counts of K1's, K4's and K5's SASS
+(each must have some: K1's semantic product, K4's bf16 logits and P . V and
+K5's products run on tensor cores).
 """
 
 import ctypes
@@ -189,6 +194,11 @@ N_TRAIN_BACKBONE_TIMED = 2  # training steps timed per backbone config, after on
 TRAIN_ENTRY_DINAT_ITERS = 2  # train_torch.main on configs/cityscapes_dinat.yaml (of 90 000)
 # the CUDA kernels of K5's source; ptxas must give each a 0-byte stack frame and no spill
 K5_KERNELS = ("na2d_bwd_query_kernel", "na2d_bwd_key_kernel", "na2d_bwd_rpb_kernel")
+# K5's precision stress, (B, H, W, heads, dh, dilation, kernel, gain): q and k
+# drawn as tests/test_torch_port_cuda.py draws them (numpy seed H * W +
+# dilation) and multiplied by gain, so that the logits reach ~80 (window
+# maxima ~35): the same bytes as that test's case
+K5_STRESS_SHAPE = (2, 13, 21, 3, 32, 1, 7, 4.0)
 DETERMINISTIC_CHILD = "--train-deterministic-child"
 CPU_STEP_CHILD = "--cpu-step-child"
 DEFAULT_CONFIG = "default"  # a child's config argument for the default Swin-T model
@@ -1139,6 +1149,7 @@ def k4_phase(dev, smi, usage):
     from uni_encoder_tpu_torch.config import load_config
     from uni_encoder_tpu_torch.ops.neighborhood_attention import (
         neighborhood_attention_2d_cuda,
+        neighborhood_attention_2d_lse_plain,
         neighborhood_attention_2d_plain,
     )
 
@@ -1167,6 +1178,15 @@ def k4_phase(dev, smi, usage):
                 if not torch.equal(got, neighborhood_attention_2d_cuda(q, k, v, rpb, kernel, d, scale)):
                     raise AssertionError(f"K4 rerun at {shape} {dtype} is not byte-identical")
                 row[f"{key}_max_abs_err"] = err
+                if dtype == torch.float32:  # the log-sum-exp K5 takes, with the window's repeats
+                    lse = torch.empty((B, H, W, nh), dtype=torch.float32, device=dev)
+                    if not torch.equal(got, neighborhood_attention_2d_cuda(q, k, v, rpb, kernel, d, scale, lse)):
+                        raise AssertionError(f"K4's output at {shape} changes with its lse output")
+                    lse_ref = neighborhood_attention_2d_lse_plain(q, k, rpb, kernel, d, scale)
+                    row["fp32_lse_max_abs_err"] = (lse - lse_ref).abs().max().item()
+                    if not torch.allclose(lse, lse_ref, atol=1e-5, rtol=1e-5):
+                        raise AssertionError(f"K4's lse at {shape}: max abs err {row['fp32_lse_max_abs_err']}")
+                    del lse, lse_ref
                 call = lambda: neighborhood_attention_2d_cuda(q, k, v, rpb, kernel, d, scale)  # noqa: E731
                 row[f"{key}_ms"] = cuda_ms(call, 20)
                 row[f"{key}_device_ms"] = cuda_graph_ms(call, 20)
@@ -1212,11 +1232,13 @@ def k4_phase(dev, smi, usage):
     emit("k4_vs_plain", kernel=kernel, dh_and_heads="from configs/cityscapes_dinat.yaml", shapes=shapes,
          edge_shapes_with_kernel=edges, frame={"layers": len(layers), **frame},
          pair={"layers": len(pair_layers), **pair}, library_stage0_dilation1=library,
-         tolerance="fp32 atol/rtol 1e-5; bf16 within 1 ulp of the fp32-computed plain output + 1e-5",
+         tolerance="fp32 atol/rtol 1e-5 (also the lse against torch.logsumexp of the plain logits); bf16 within 1 "
+                   "ulp of the fp32-computed plain output + 1e-5",
          seconds=time.perf_counter() - t_phase, card=smi)
     s0 = shapes[str(layers[0])]
     rows = list(shapes.values()) + list(edges.values())
     return dict(max_abs_err=max(max(r["bf16_max_abs_err"], r["fp32_max_abs_err"]) for r in rows),
+                lse_max_abs_err=max(r["fp32_lse_max_abs_err"] for r in rows),
                 ms=s0["bf16_ms"], plain_ms=s0["plain_ms"], bound_ms=s0["bound_ms"], bound_by=s0["bound_by"],
                 library_ms=library.get("ms"), shape=[B, H, W, nh, dh, 1], fp32_ms=s0["fp32_ms"],
                 frame_ms=frame["bf16_ms"], frame_plain_ms=frame["plain_ms"], frame_bound_ms=frame["bound_ms"],
@@ -1290,19 +1312,20 @@ def k5_phase(dev, smi, usage):
     plain version at every NAT-layer shape of a DiNAT-L training step
     (configs/cityscapes_dinat.yaml; fp32): the crop pass (B=2, 512x1024)
     and the triples' pass (B=6: three 192x512 frames of 2 items; most of
-    its sub-grids are shorter than the kernel), and at K4_EDGE_SHAPES; a
-    rerun byte-identical; each shape's kernel time (20 calls back to back,
-    host included, and the device alone, replayed from a CUDA graph), plain
-    time (autograd's backward alone), bound, blocks, shared memory and
-    registers per block (`usage`: ptxas's, per kernel); each pass's 30
-    launches summed; and torch.compile(flex_attention)'s backward (dq, dk,
-    dv; a library call timed here and used nowhere in the port) at stage 0,
-    dilation 1. Returns the kernels line's fields at the crop's stage 0,
-    dilation 1."""
+    its sub-grids are shorter than the kernel), at K4_EDGE_SHAPES and at
+    K5_STRESS_SHAPE; a rerun byte-identical; each shape's kernel time (20
+    calls back to back, host included, and the device alone, replayed from a
+    CUDA graph), plain time (autograd's backward alone), bound, blocks,
+    shared memory and registers per block (`usage`: ptxas's, per kernel);
+    each pass's 30 launches summed; and torch.compile(flex_attention)'s
+    backward (dq, dk, dv; a library call timed here and used nowhere in the
+    port) at stage 0, dilation 1. Returns the kernels line's fields at the
+    crop's stage 0, dilation 1."""
     from uni_encoder_tpu_torch import kernels
     from uni_encoder_tpu_torch.config import load_config
     from uni_encoder_tpu_torch.ops.neighborhood_attention import (
         _k5_launch_shape,
+        _plain_logits,
         neighborhood_attention_2d_backward_cuda,
         neighborhood_attention_2d_cuda,
         neighborhood_attention_2d_plain,
@@ -1319,18 +1342,27 @@ def k5_phase(dev, smi, usage):
     regs = {k: max(u["registers"] for name, u in usage.items() if k in name) for k in K5_KERNELS}
     g = torch.Generator(device="cpu").manual_seed(5)
 
-    def measure(shape, kernel):
+    def measure(shape, kernel, gain=None):
         B, H, W, nh, dh, d = shape
-        qkv = torch.randn(B, H, W, 3, nh, dh, generator=g).to(dev)
-        rpb = (torch.randn(nh, 2 * kernel - 1, 2 * kernel - 1, generator=g) * 0.5).to(dev)
-        grad_out = torch.randn(B, H, W, nh, dh, generator=g).to(dev)
+        if gain is None:
+            qkv = torch.randn(B, H, W, 3, nh, dh, generator=g).to(dev)
+            rpb = (torch.randn(nh, 2 * kernel - 1, 2 * kernel - 1, generator=g) * 0.5).to(dev)
+            grad_out = torch.randn(B, H, W, nh, dh, generator=g).to(dev)
+        else:  # tests/test_torch_port_cuda.py's draw, q and k times gain
+            rng = np.random.RandomState(H * W + d)
+            qkv = rng.randn(B, H, W, 3, nh, dh).astype(np.float32)
+            qkv[:, :, :, :2] *= gain
+            rpb = (0.5 * rng.randn(nh, 2 * kernel - 1, 2 * kernel - 1)).astype(np.float32)
+            qkv, rpb = torch.from_numpy(qkv).to(dev), torch.from_numpy(rpb).to(dev)
+            grad_out = torch.from_numpy(rng.randn(B, H, W, nh, dh).astype(np.float32)).to(dev)
         scale = dh ** -0.5
         with torch.no_grad():
+            lse = torch.empty((B, H, W, nh), dtype=torch.float32, device=dev)
             out = neighborhood_attention_2d_cuda(qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2], rpb, kernel, d,
-                                                 scale)
+                                                 scale, lse)
 
         def call():
-            return neighborhood_attention_2d_backward_cuda(qkv, rpb, out, grad_out, kernel, d, scale)
+            return neighborhood_attention_2d_backward_cuda(qkv, rpb, out, lse, grad_out, kernel, d, scale)
 
         got = call()
         leaves = [qkv.clone().requires_grad_(True), rpb.clone().requires_grad_(True)]
@@ -1341,6 +1373,9 @@ def k5_phase(dev, smi, usage):
             return torch.autograd.grad(plain_out, leaves, grad_out, retain_graph=True)
 
         row = {"errors": k5_check(got, plain(), B, H, W, dh)}
+        if gain is not None:
+            row["logit_abs_max"] = _plain_logits(qkv[:, :, :, 0], qkv[:, :, :, 1], rpb, kernel, d,
+                                                 scale).abs().max().item()
         again = call()
         if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
             raise AssertionError(f"K5 rerun at {shape} kernel {kernel} is not byte-identical")
@@ -1360,6 +1395,7 @@ def k5_phase(dev, smi, usage):
     stage0 = []
     shapes = {str(shape): measure(shape, kernel) for shape in sorted(set(crop) | set(triples), reverse=True)}
     edges = {str(e): measure(e[:6], e[6]) for e in K4_EDGE_SHAPES}
+    edges[f"{K5_STRESS_SHAPE}: q, k x{K5_STRESS_SHAPE[7]}"] = measure(K5_STRESS_SHAPE[:6], *K5_STRESS_SHAPE[6:])
     torch.cuda.empty_cache()
     passes = {name: {"layers": len(ls), **{k: sum(shapes[str(s)][k] for s in ls)
                                            for k in ("ms", "device_ms", "plain_ms", "bound_ms")}}
@@ -1740,10 +1776,11 @@ def main():
     k1_hmma = sass_count(kernels.library_path("fused_postprocess"), "HMMA")
     # K4's fp32 kernel runs on CUDA cores: every HMMA is the bf16 kernel's
     k4_hmma = sass_count(kernels.library_path("neighborhood_attention"), "HMMA")
+    k5_hmma = sass_count(kernels.library_path("neighborhood_attention_backward"), "HMMA")
     emit("build", seconds=time.perf_counter() - t0, per_source=secs, ptxas=ptxas,
          k2_stack_frame_bytes=k2_frames, k3_stack_frame_bytes=k3_frames, k1_stack_frame_bytes=k1_frames,
          k4_stack_frame_bytes=k4_frames, k4_ptxas=k4_usage, k5_ptxas=k5_usage, k1_sass_hmma=k1_hmma,
-         k4_sass_hmma=k4_hmma)
+         k4_sass_hmma=k4_hmma, k5_sass_hmma=k5_hmma)
     for name, frames in (("K2", k2_frames), *((f"K3 {k}", v) for k, v in k3_frames.items()), ("K4", k4_frames)):
         if not frames or any(frames):
             raise AssertionError(f"{name} stack frames {frames}: expected 0 bytes for every instantiation")
@@ -1756,6 +1793,8 @@ def main():
         raise AssertionError("K1's SASS holds no HMMA: the semantic product is not on tensor cores")
     if k4_hmma == 0:
         raise AssertionError("K4's SASS holds no HMMA: the bf16 logits are not on tensor cores")
+    if k5_hmma == 0:
+        raise AssertionError("K5's SASS holds no HMMA: its 3xTF32 products are not on tensor cores")
 
     results = {}
 

@@ -359,6 +359,36 @@ def test_neighborhood_attention_kernel_rejects_bad_inputs(cuda):
         for args in bad:
             with pytest.raises(ValueError):
                 neighborhood_attention_2d_cuda(*args, 3, 1)
+        lse = torch.empty(1, 8, 8, 2, device=cuda)
+        for args, bad_lse in (((q.bfloat16(), k.bfloat16(), v.bfloat16(), rpb.bfloat16()), lse),  # bf16 has none
+                              ((q, k, v, rpb), lse[:, :4]),  # its shape
+                              ((q, k, v, rpb), lse.double())):  # its dtype
+            with pytest.raises(ValueError):
+                neighborhood_attention_2d_cuda(*args, 3, 1, 1.0, bad_lse)
+
+
+@pytest.mark.parametrize("H,W,kernel,dilation", [
+    (13, 21, 7, 1), (19, 27, 5, 1), (5, 11, 3, 3), (6, 16, 7, 2), (5, 11, 7, 12), (3, 64, 7, 4), (20, 96, 7, 4),
+    (40, 45, 13, 3),
+])
+def test_neighborhood_attention_kernel_lse_matches_plain(cuda, H, W, kernel, dilation):
+    """The log-sum-exp K4's fp32 kernel writes for K5 (`lse`): each
+    window's, repeated keys counted as often as the plain version lists them,
+    against torch.logsumexp of the plain version's fp32 logits at atol/rtol
+    1e-5 (the fp32 output's tolerance); the output's bytes are the same with
+    and without it."""
+    from uni_encoder_tpu_torch.ops.neighborhood_attention import (
+        neighborhood_attention_2d_cuda,
+        neighborhood_attention_2d_lse_plain,
+    )
+
+    q, k, v, rpb = _na_qkv(H * W + kernel, 2, H, W, 6, 32, kernel, cuda, torch.float32)
+    lse = torch.empty(2, H, W, 6, device=cuda)
+    with torch.inference_mode():
+        got = neighborhood_attention_2d_cuda(q, k, v, rpb, kernel, dilation, 32 ** -0.5, lse)
+        assert torch.equal(got, neighborhood_attention_2d_cuda(q, k, v, rpb, kernel, dilation, 32 ** -0.5))
+    ref = neighborhood_attention_2d_lse_plain(q, k, rpb, kernel, dilation, 32 ** -0.5)
+    torch.testing.assert_close(lse, ref, atol=1e-5, rtol=1e-5)
 
 
 def test_neighborhood_attention_kernel_has_no_backward(cuda):
@@ -393,12 +423,27 @@ def test_neighborhood_attention_kernel_has_no_backward(cuda):
 # head (n = B * H * W terms, each carrying the rounding of a 32-long dot
 # product; where every window is one key the exact sum is 0), atol
 # 1e-6 * sqrt(32 n) + rtol 1e-4
-def _k5_case(seed, B, H, W, nh, kernel, device):
+def _k5_case(seed, B, H, W, nh, kernel, device, gain=1.0):
+    """qkv (q and k times gain), rpb and grad_out from a numpy seed."""
     rng = np.random.RandomState(seed)
-    qkv = torch.from_numpy(rng.randn(B, H, W, 3, nh, 32).astype(np.float32)).to(device)
+    qkv = rng.randn(B, H, W, 3, nh, 32).astype(np.float32)
+    qkv[:, :, :, :2] *= gain
+    qkv = torch.from_numpy(qkv).to(device)
     rpb = torch.from_numpy((0.5 * rng.randn(nh, 2 * kernel - 1, 2 * kernel - 1)).astype(np.float32)).to(device)
     grad_out = torch.from_numpy(rng.randn(B, H, W, nh, 32).astype(np.float32)).to(device)
     return qkv, rpb, grad_out
+
+
+def _k4_forward(qkv, rpb, kernel, dilation, scale=32 ** -0.5):
+    """K4's output and log-sum-exp, as NeighborhoodAttention2DFunction
+    saves them for K5."""
+    from uni_encoder_tpu_torch.ops.neighborhood_attention import neighborhood_attention_2d_cuda
+
+    lse = torch.empty(qkv.shape[:3] + qkv.shape[4:5], device=qkv.device)
+    with torch.no_grad():
+        out = neighborhood_attention_2d_cuda(qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2], rpb, kernel, dilation,
+                                             scale, lse)
+    return out, lse
 
 
 def _k5_check(got, ref, B, H, W):
@@ -406,31 +451,31 @@ def _k5_check(got, ref, B, H, W):
     torch.testing.assert_close(got[1], ref[1], atol=1e-6 * (32 * B * H * W) ** 0.5, rtol=1e-4)
 
 
-@pytest.mark.parametrize("B,H,W,nh,kernel,dilation", [
-    (2, 128, 256, 6, 7, 1), (2, 128, 256, 6, 7, 20),  # a DiNAT-L training crop's stage 0 (6-row sub-grids at 20)
-    (2, 64, 128, 12, 7, 10), (2, 32, 64, 24, 7, 4), (2, 16, 32, 48, 7, 2),  # its stages 1-3
-    (6, 48, 128, 6, 7, 20), (6, 12, 32, 24, 7, 3), (6, 6, 16, 48, 7, 2),  # the 192x512 triples' pass: repeats
-    (2, 13, 21, 3, 7, 1), (2, 13, 21, 3, 7, 2), (2, 19, 27, 3, 5, 1), (2, 17, 9, 3, 3, 1),  # ragged tiles
-    (2, 5, 11, 3, 3, 3), (2, 5, 11, 3, 7, 12), (2, 3, 64, 3, 7, 4), (2, 20, 96, 3, 7, 4),  # short sub-grids
-    (2, 21, 30, 3, 9, 1), (2, 40, 45, 3, 13, 3),  # kernels past 7
+@pytest.mark.parametrize("B,H,W,nh,kernel,dilation,gain", [
+    (2, 128, 256, 6, 7, 1, 1), (2, 128, 256, 6, 7, 20, 1),  # a DiNAT-L training crop's stage 0 (6-row sub-grids at 20)
+    (2, 64, 128, 12, 7, 10, 1), (2, 32, 64, 24, 7, 4, 1), (2, 16, 32, 48, 7, 2, 1),  # its stages 1-3
+    (6, 48, 128, 6, 7, 20, 1), (6, 12, 32, 24, 7, 3, 1), (6, 6, 16, 48, 7, 2, 1),  # the 192x512 triples' pass: repeats
+    (2, 13, 21, 3, 7, 1, 1), (2, 13, 21, 3, 7, 2, 1), (2, 19, 27, 3, 5, 1, 1), (2, 17, 9, 3, 3, 1, 1),  # ragged tiles
+    (2, 5, 11, 3, 3, 3, 1), (2, 5, 11, 3, 7, 12, 1), (2, 3, 64, 3, 7, 4, 1), (2, 20, 96, 3, 7, 4, 1),  # short sub-grids
+    (2, 21, 30, 3, 9, 1, 1), (2, 40, 45, 3, 13, 3, 1),  # kernels past 7
+    (2, 13, 21, 3, 7, 1, 4),  # q and k 4x: logits to ~80, where one TF32 product per term misses by ~1000x
 ])
-def test_neighborhood_attention_backward_kernel_matches_plain(cuda, B, H, W, nh, kernel, dilation):
+def test_neighborhood_attention_backward_kernel_matches_plain(cuda, B, H, W, nh, kernel, dilation, gain):
     """K5 against autograd of the plain version on the same qkv, rpb and
     grad_out, with the module's scale: DiNAT-L training shapes (the crop's
-    at B = 2, the sequence pass's three frames at B = 6) and edge shapes."""
+    at B = 2, the sequence pass's three frames at B = 6), edge shapes, and
+    one shape whose large logits stress the 3xTF32 products (the plain fp32
+    version against float64 uses a third of the tolerance there)."""
     from uni_encoder_tpu_torch.ops.neighborhood_attention import (
         neighborhood_attention_2d_backward_cuda,
         neighborhood_attention_2d_backward_plain,
-        neighborhood_attention_2d_cuda,
     )
 
-    qkv, rpb, grad_out = _k5_case(H * W + dilation, B, H, W, nh, kernel, cuda)
+    qkv, rpb, grad_out = _k5_case(H * W + dilation, B, H, W, nh, kernel, cuda, gain)
     scale = 32 ** -0.5
-    with torch.no_grad():
-        out = neighborhood_attention_2d_cuda(qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2], rpb, kernel, dilation,
-                                             scale)
+    out, lse = _k4_forward(qkv, rpb, kernel, dilation, scale)
     n0 = neighborhood_attention_2d_backward_cuda.launches
-    got = neighborhood_attention_2d_backward_cuda(qkv, rpb, out, grad_out, kernel, dilation, scale)
+    got = neighborhood_attention_2d_backward_cuda(qkv, rpb, out, lse, grad_out, kernel, dilation, scale)
     assert neighborhood_attention_2d_backward_cuda.launches == n0 + 1
     ref = neighborhood_attention_2d_backward_plain(qkv, rpb, grad_out, kernel, dilation, scale)
     _k5_check(got, ref, B, H, W)
@@ -440,15 +485,11 @@ def test_neighborhood_attention_backward_kernel_reruns_byte_identical(cuda):
     """No atomics and a fixed order of every sum: three runs of K5 at the
     triples' stage 0 at dilation 20 (B = 6, 48x128, 6 heads: sub-grids of 2
     and 3 rows) give the same bytes."""
-    from uni_encoder_tpu_torch.ops.neighborhood_attention import (
-        neighborhood_attention_2d_backward_cuda,
-        neighborhood_attention_2d_cuda,
-    )
+    from uni_encoder_tpu_torch.ops.neighborhood_attention import neighborhood_attention_2d_backward_cuda
 
     qkv, rpb, grad_out = _k5_case(9, 6, 48, 128, 6, 7, cuda)
-    with torch.no_grad():
-        out = neighborhood_attention_2d_cuda(qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2], rpb, 7, 20)
-    runs = [neighborhood_attention_2d_backward_cuda(qkv, rpb, out, grad_out, 7, 20) for _ in range(3)]
+    out, lse = _k4_forward(qkv, rpb, 7, 20, 1.0)
+    runs = [neighborhood_attention_2d_backward_cuda(qkv, rpb, out, lse, grad_out, 7, 20) for _ in range(3)]
     assert all(torch.equal(runs[0][i], r[i]) for r in runs[1:] for i in range(2))
 
 
@@ -467,7 +508,9 @@ def test_neighborhood_attention_autograd_runs_k4_then_k5(cuda):
     qkv, rpb, grad_out = _k5_case(4, 2, 24, 40, 6, 7, cuda)
     with torch.no_grad():
         served = neighborhood_attention_2d_qkv(qkv, rpb, 7, 3, 0.2)
-        direct = neighborhood_attention_2d_backward_cuda(qkv, rpb, served, grad_out, 7, 3, 0.2)
+    out, lse = _k4_forward(qkv, rpb, 7, 3, 0.2)
+    assert torch.equal(out, served)
+    direct = neighborhood_attention_2d_backward_cuda(qkv, rpb, out, lse, grad_out, 7, 3, 0.2)
     k4, k5 = neighborhood_attention_2d_cuda.launches, neighborhood_attention_2d_backward_cuda.launches
     leaf, bias = qkv.clone().requires_grad_(True), rpb.clone().requires_grad_(True)
     out = neighborhood_attention_2d_qkv(leaf, bias, 7, 3, 0.2)
@@ -486,13 +529,15 @@ def test_neighborhood_attention_backward_kernel_rejects_bad_inputs(cuda):
 
     qkv, rpb, grad_out = _k5_case(0, 1, 8, 8, 2, 3, cuda)
     out = torch.zeros_like(grad_out)
+    lse = torch.zeros(grad_out.shape[:4], device=cuda)
     bad = (
-        (qkv.bfloat16(), rpb.bfloat16(), out.bfloat16(), grad_out.bfloat16()),  # fp32 only
-        (qkv.transpose(1, 2), rpb, out, grad_out),  # not contiguous
-        (qkv[..., :16].contiguous(), rpb, out[..., :16].contiguous(), grad_out[..., :16].contiguous()),  # head dim
-        (qkv, rpb[:, :3], out, grad_out),  # rpb shape
-        (qkv, rpb, out[:, :4], grad_out),  # out shape
-        (qkv, rpb.cpu(), out, grad_out),  # device
+        (qkv.bfloat16(), rpb.bfloat16(), out.bfloat16(), lse, grad_out.bfloat16()),  # fp32 only
+        (qkv.transpose(1, 2), rpb, out, lse, grad_out),  # not contiguous
+        (qkv[..., :16].contiguous(), rpb, out[..., :16].contiguous(), lse, grad_out[..., :16].contiguous()),  # dh
+        (qkv, rpb[:, :3], out, lse, grad_out),  # rpb shape
+        (qkv, rpb, out[:, :4], lse, grad_out),  # out shape
+        (qkv, rpb, out, lse[:, :4], grad_out),  # lse shape
+        (qkv, rpb.cpu(), out, lse, grad_out),  # device
     )
     for args in bad:
         with pytest.raises(ValueError):

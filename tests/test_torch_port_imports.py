@@ -3,9 +3,9 @@ neither PIL nor cv2 when it is imported.
 
 tests/conftest.py imports jax for every test, so the import check runs in a
 fresh interpreter; a source scan backs it up for imports that only run
-inside functions. The port's sources, `evaluate_torch.py`, `train_torch.py`
-and `chip_smoke.py` are checked, and the train mappers import neither PIL
-nor cv2 when they run.
+inside functions. The port's sources, `evaluate_torch.py`, `train_torch.py`,
+`chip_smoke.py` and `k5_variants.py` are checked, and the train mappers
+import neither PIL nor cv2 when they run.
 """
 
 import os
@@ -23,6 +23,7 @@ for m in pkgutil.walk_packages(port.__path__, "uni_encoder_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 import evaluate_torch
+import k5_variants
 import train_torch
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "jaxlib", "uni_encoder_tpu", "PIL", "cv2"))
 print(bad)
@@ -45,6 +46,7 @@ def _sources():
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "evaluate_torch.py")
     yield os.path.join(REPO, "train_torch.py")
+    yield os.path.join(REPO, "k5_variants.py")
 
 
 def test_source_scan_finds_no_jax_package_import():

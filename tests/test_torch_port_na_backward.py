@@ -16,14 +16,25 @@ index, and its gradients add up that often).
 
 (b) A dense PyTorch transcription of K5's formulation, in float64 from the
 same fp32 inputs, against (a)'s autograd: per query tile (`_tile_halo`)
-each halo key once, weighted by its count, the log-sum-exp, D = dO . O, dS,
-dq and a drpb table per tile; per key tile the queries whose windows hold
-each key (`_inverse_range`), the logits recomputed, dk and dv gathered.
-dqkv at atol 2e-6 + rtol 2e-6: the plain version sums its 49 window terms
-one by one in fp32, the transcription in float64; drpb at rtol 2e-6 / atol
-1e-6 * sqrt(B*H*W), as in (a).
+each halo key once, weighted by its count, P from the forward's
+log-sum-exp, D = dO . O of the forward's output, dS, a drpb table per tile,
+then the softmax made the pass's own (P / r, D' = sum P dP / r, dq = scale /
+r (sum dS k - (D' - D) sum P k)); per key tile the queries whose windows
+hold each key (`_inverse_range`), the logits recomputed, P / r, dk and dv
+gathered with D'. dqkv at atol 2e-6 + rtol 2e-6: the plain version sums its
+49 window terms one by one in fp32, the transcription in float64; drpb at
+rtol 2e-6 / atol 1e-6 * sqrt(B*H*W), as in (a). Given a log-sum-exp and an
+output off by 1e-3 (K4's logits and K5's differ by a few ulps), dqkv is
+still the plain version's: the correction is exact.
 
 (c) `_inverse_range` against a brute force over `_axis_indices`.
+
+(d) K5's 3xTF32 products, emulated in numpy: `cvt.rna.tf32` (10 mantissa
+bits, ties away from zero) of x and of x - big, and small*big + big*small +
+big*big summed in float64, within the bound K5's source states, 3.01 * 2^-22
+of sum |x y| over 32-dim rows; one TF32 product is not. And
+`neighborhood_attention_2d_lse_plain` (what K4's lse output is held to on the
+card) against a float64 brute force over `_axis_indices`.
 """
 
 import numpy as np
@@ -40,6 +51,7 @@ from uni_encoder_tpu_torch.ops.neighborhood_attention import (
     _tile_halo,
     _window_start,
     neighborhood_attention_2d_backward_plain,
+    neighborhood_attention_2d_lse_plain,
     neighborhood_attention_2d_plain,
     neighborhood_attention_2d_qkv,
 )
@@ -122,14 +134,15 @@ def _counts(sub_len, kernel, keys):
     return np.where((keys == sub_len - 1) & (sub_len < kernel), kernel - sub_len + 1, 1)
 
 
-def _dense_k5(qkv, rpb, dout, kernel, dilation, scale):
-    """K5's algorithm in PyTorch, in the inputs' dtype: (dqkv, drpb)."""
+def _dense_k5(qkv, rpb, dout, kernel, dilation, scale, lse, out):
+    """K5's algorithm in PyTorch, in the inputs' dtype, from the forward's
+    log-sum-exp `lse` (B, H, W, heads) and output `out`: (dqkv, drpb)."""
     B, H, W, _, nh, dh = qkv.shape
     q, k, v = qkv[:, :, :, 0] * scale, qkv[:, :, :, 1], qkv[:, :, :, 2]
     dqkv = torch.full_like(qkv, float("nan"))
     drpb = torch.zeros_like(rpb)
-    lse = torch.full((B, H, W, nh), float("nan"), dtype=qkv.dtype)
-    dsum = torch.full_like(lse, float("nan"))
+    dsum = torch.full((B, H, W, nh), float("nan"), dtype=qkv.dtype)  # D' of each query
+    inv = torch.full_like(dsum, float("nan"))  # 1 / r
     rel = lambda keys, queries: torch.from_numpy(keys[None] - queries[:, None] + kernel - 1)  # noqa: E731
 
     # (a) query tiles: the halo, each key once with its count
@@ -141,7 +154,8 @@ def _dense_k5(qkv, rpb, dout, kernel, dilation, scale):
             ksh, ksw = np.arange(h0, h0 + len(ch)), np.arange(w0, w0 + len(cw))
             rows, cols = torch.from_numpy(qsh * dilation + mh), torch.from_numpy(qsw * dilation + mw)
             krows, kcols = torch.from_numpy(ksh * dilation + mh), torch.from_numpy(ksw * dilation + mw)
-            Q, G = (x[:, rows][:, :, cols] for x in (q, dout))
+            Q, G, O = (x[:, rows][:, :, cols] for x in (q, dout, out))
+            L = lse[:, rows][:, :, cols]
             K, V = (x[:, krows][:, :, kcols] for x in (k, v))
 
             def inside(qs, ks, sub_len):
@@ -154,14 +168,18 @@ def _dense_k5(qkv, rpb, dout, kernel, dilation, scale):
             logits = torch.einsum("bijnd,bklnd->bijnkl", Q, K) + bias.permute(1, 2, 0, 3, 4)[None]
             logits = logits.masked_fill(~valid[None, :, :, None], float("-inf"))
             count = torch.from_numpy(ch[:, None] * cw[None, :]).to(qkv.dtype)
-            tile_lse = torch.logsumexp(logits + count.log(), dim=(-2, -1))
-            p = torch.exp(logits - tile_lse[..., None, None])  # one copy's probability
-            out = torch.einsum("bijnkl,bklnd->bijnd", count * p, V)
-            d = (G * out).sum(-1)
-            g = count * p * (torch.einsum("bijnd,bklnd->bijnkl", G, V) - d[..., None, None])
-            dqkv[:, rows[:, None], cols[None, :], 0] = scale * torch.einsum("bijnkl,bklnd->bijnd", g, K)
-            lse[:, rows[:, None], cols[None, :]] = tile_lse
-            dsum[:, rows[:, None], cols[None, :]] = d
+            p = count * torch.exp(logits - L[..., None, None])  # each halo key's P, its copies counted
+            d = (G * O).sum(-1)  # the forward's D = dO . O
+            dp = torch.einsum("bijnd,bklnd->bijnkl", G, V)
+            g = p * (dp - d[..., None, None])  # dS
+            # the softmax made this pass's own: P / r, D' = sum P dP / r
+            r = p.sum((-2, -1))
+            d2 = (p * dp).sum((-2, -1)) / r
+            dq = torch.einsum("bijnkl,bklnd->bijnd", g, K) - (d2 - d)[..., None] * torch.einsum(
+                "bijnkl,bklnd->bijnd", p, K)
+            dqkv[:, rows[:, None], cols[None, :], 0] = scale * dq / r[..., None]
+            dsum[:, rows[:, None], cols[None, :]] = d2
+            inv[:, rows[:, None], cols[None, :]] = 1 / r
             # the tile's drpb table: each query's dS at its keys' bias cells
             for i in range(len(qsh)):
                 for j in range(len(qsw)):
@@ -181,7 +199,7 @@ def _dense_k5(qkv, rpb, dout, kernel, dilation, scale):
             qrows, qcols = torch.from_numpy(qsh * dilation + mh), torch.from_numpy(qsw * dilation + mw)
             K, V = (x[:, rows][:, :, cols] for x in (k, v))
             Q, G = (x[:, qrows][:, :, qcols] for x in (q, dout))
-            L, Dq = (x[:, qrows][:, :, qcols] for x in (lse, dsum))
+            L, Dq, R = (x[:, qrows][:, :, qcols] for x in (lse, dsum, inv))
             in_h = torch.from_numpy(np.array([(qsh >= lo) & (qsh <= hi) for lo, hi in rh]))
             in_w = torch.from_numpy(np.array([(qsw >= lo) & (qsw <= hi) for lo, hi in rw]))
             valid = in_h[:, None, :, None] & in_w[None, :, None, :]  # (key i, key j, query h, query w)
@@ -190,11 +208,18 @@ def _dense_k5(qkv, rpb, dout, kernel, dilation, scale):
             logits = torch.einsum("bijnd,bklnd->bijnkl", K, Q) + bias.permute(1, 2, 0, 3, 4)[None]
             count = torch.from_numpy(_counts(sub_h, kernel, ksh)[:, None] * _counts(sub_w, kernel, ksw)[None, :])
             p = count.to(qkv.dtype)[None, :, :, None, None, None] * torch.exp(logits - L.permute(0, 3, 1, 2)[:, None, None])
-            p = p.masked_fill(~valid[None, :, :, None], 0.0)
+            p = (p * R.permute(0, 3, 1, 2)[:, None, None]).masked_fill(~valid[None, :, :, None], 0.0)
             g = p * (torch.einsum("bijnd,bklnd->bijnkl", V, G) - Dq.permute(0, 3, 1, 2)[:, None, None])
             dqkv[:, rows[:, None], cols[None, :], 1] = torch.einsum("bijnkl,bklnd->bijnd", g, Q)
             dqkv[:, rows[:, None], cols[None, :], 2] = torch.einsum("bijnkl,bklnd->bijnd", p, G)
     return dqkv, drpb
+
+
+def _forward(qkv, rpb, kernel, dilation, scale):
+    """The forward's (log-sum-exp, output), plainly, as K4 hands them to K5."""
+    q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+    return (neighborhood_attention_2d_lse_plain(q, k, rpb, kernel, dilation, scale),
+            neighborhood_attention_2d_plain(q, k, v, rpb, kernel, dilation, scale))
 
 
 @pytest.mark.parametrize("H,W,kernel,dilation", [
@@ -213,11 +238,30 @@ def test_dense_k5_matches_plain_autograd(H, W, kernel, dilation):
     B, nh, dh = 2, 2, 8
     qkv, rpb, cot = (torch.from_numpy(x) for x in _case(H + 7 * W + dilation, B, H, W, nh, dh, kernel))
     scale = dh ** -0.5
-    got = _dense_k5(qkv.double(), rpb.double(), cot.double(), kernel, dilation, scale)
+    got = _dense_k5(qkv.double(), rpb.double(), cot.double(), kernel, dilation, scale,
+                    *_forward(qkv.double(), rpb.double(), kernel, dilation, scale))
     ref = neighborhood_attention_2d_backward_plain(qkv, rpb, cot, kernel, dilation, scale)
     assert not got[0].isnan().any()  # every query and every key was in a tile
     torch.testing.assert_close(got[0], ref[0].double(), atol=2e-6, rtol=2e-6)
     torch.testing.assert_close(got[1], ref[1].double(), atol=1e-6 * np.sqrt(B * H * W), rtol=2e-6)
+
+
+@pytest.mark.parametrize("H,W,kernel,dilation", [(13, 21, 7, 1), (20, 30, 3, 4), (6, 16, 7, 2), (5, 11, 3, 3)])
+def test_dense_k5_makes_the_softmax_its_own(H, W, kernel, dilation):
+    """K4's logits and K5's agree only to a few ulps, so K4's lse and
+    output are slightly off for K5's P: given an lse and an output off by
+    1e-3, K5's formulation (P / r, D') still gives the plain version's dqkv.
+    (drpb keeps the forward's D and r, off by as much.)"""
+    B, nh, dh = 2, 2, 8
+    qkv, rpb, cot = (torch.from_numpy(x).double() for x in _case(H * W + kernel, B, H, W, nh, dh, kernel))
+    scale = dh ** -0.5
+    lse, out = _forward(qkv, rpb, kernel, dilation, scale)
+    rng = np.random.RandomState(kernel * dilation)
+    lse = lse + 1e-3 * torch.from_numpy(rng.randn(*lse.shape))
+    out = out + 1e-3 * torch.from_numpy(rng.randn(*out.shape))
+    got = _dense_k5(qkv, rpb, cot, kernel, dilation, scale, lse, out)[0]
+    ref = neighborhood_attention_2d_backward_plain(qkv.float(), rpb.float(), cot.float(), kernel, dilation, scale)[0]
+    torch.testing.assert_close(got, ref.double(), atol=2e-6, rtol=2e-6)
 
 
 # ------------------------------------------------------- (c) inverse ranges
@@ -239,3 +283,56 @@ def test_inverse_range_matches_axis_indices(kernel):
                     assert holds.tolist() == list(range(lo, hi + 1)), (size, dilation, m, key)
                     times = (windows[holds] == key).sum(1)
                     assert (times == _counts(sub_len, kernel, np.array([key]))[0]).all()
+
+
+# ------------------------------------------- (d) 3xTF32, and the plain lse
+def _tf32_rna(x):
+    """cvt.rna.tf32.f32 of finite float32 values, as K5's `tf32_rna` forms
+    it: round to 10 mantissa bits, ties away from zero."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_split_tf32_products_hold_their_bound():
+    """x = big + small with big = tf32(x), small = tf32(x - big); 32-dim rows
+    over 40 binades: small*big + big*small + big*big is within 3.01 * 2^-22
+    of sum |x y| of the exact dot product on every row, one TF32 product
+    big*big on almost none. Ties round away from zero, and x - big is exact
+    in float32."""
+    rng = np.random.RandomState(12)
+    x, y = ((rng.randn(4096, 32) * 2.0 ** rng.randint(-20, 21, (4096, 1))).astype(np.float32) for _ in range(2))
+    (xb, xs), (yb, ys) = ((b, _tf32_rna(a - b)) for a, b in ((x, _tf32_rna(x)), (y, _tf32_rna(y))))
+    assert not (xb.view(np.uint32) & 0x1FFF).any() and not (xs.view(np.uint32) & 0x1FFF).any()
+    assert np.array_equal(xb.astype(np.float64) + (x - xb).astype(np.float64), x.astype(np.float64))
+    f = lambda a: a.astype(np.float64)  # noqa: E731
+    exact, size = (f(x) * f(y)).sum(1), np.abs(f(x) * f(y)).sum(1)
+    three = (f(xs) * f(yb) + f(xb) * f(ys) + f(xb) * f(yb)).sum(1)
+    one = (f(xb) * f(yb)).sum(1)
+    bound = 3.01 * 2.0 ** -22 * size
+    assert (np.abs(three - exact) <= bound).all()
+    assert (np.abs(one - exact) > bound).mean() > 0.99
+    ties = np.array([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 3 * 2.0 ** -11, 1 + 2.0 ** -11 + 2.0 ** -23], np.float32)
+    assert _tf32_rna(ties).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1 + 2.0 ** -9, 1 + 2.0 ** -10]
+
+
+@pytest.mark.parametrize("H,W,kernel,dilation", [(13, 21, 7, 1), (5, 11, 3, 3), (6, 16, 7, 2), (4, 7, 7, 5)])
+def test_lse_plain_matches_a_brute_force(H, W, kernel, dilation):
+    """`neighborhood_attention_2d_lse_plain`: per query, the log-sum-exp of
+    q_scaled . k + rpb over its window as `_axis_indices` lists it (a short
+    sub-grid's last key as often as listed), against float64; the plain
+    version computes in fp32, so atol/rtol 1e-6 (a few ulps)."""
+    B, nh, dh = 2, 2, 8
+    qkv, rpb, _ = _case(H * W + dilation, B, H, W, nh, dh, kernel)
+    qkv, rpb = qkv.astype(np.float64), rpb.astype(np.float64)
+    scale = dh ** -0.5
+    got = neighborhood_attention_2d_lse_plain(torch.from_numpy(qkv[:, :, :, 0]), torch.from_numpy(qkv[:, :, :, 1]),
+                                              torch.from_numpy(rpb), kernel, dilation, scale).numpy()
+    (ih, rh), (iw, rw) = _axis_indices(H, kernel, dilation), _axis_indices(W, kernel, dilation)
+    ref = np.empty((B, H, W, nh))
+    for i in range(H):
+        for j in range(W):
+            keys = qkv[:, ih[i]][:, :, iw[j], 1]  # (B, k, k, nh, dh)
+            logits = np.einsum("bnd,bklnd->bnkl", qkv[:, i, j, 0] * scale, keys) + rpb[:, rh[i]][:, :, rw[j]][None]
+            top = logits.max((-2, -1))
+            ref[:, i, j] = top + np.log(np.exp(logits - top[..., None, None]).sum((-2, -1)))
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)

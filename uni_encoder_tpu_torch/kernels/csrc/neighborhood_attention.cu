@@ -20,6 +20,10 @@
 //            output, read in place
 //   rpb      (heads, 2k - 1, 2k - 1) the same dtype, contiguous
 //   out      (B, H, W, heads, dh) contiguous, the same dtype
+//   lse      optional, fp32 only: (B, H, W, heads) fp32, each query's
+//            log-sum-exp over its window (the repeat counts included), for
+//            the backward K5 (neighborhood_attention_backward.cu); null when
+//            no gradient is needed, and then nothing else changes
 //
 // What bounds it on an H100: per query and head 2 * k * k * dh multiply-adds
 // (6272 FLOP at k = 7, dh = 32) on 3 * dh inputs and dh outputs. At DiNAT-L's
@@ -494,7 +498,10 @@ __global__ void __launch_bounds__(kThreads, 5) na2d_kernel_bf16(const Params p) 
 }
 
 // ------------------------------------------------------------------ fp32
-__global__ void __launch_bounds__(kThreads) na2d_kernel_fp32(const Params p) {
+// lse: each query's log-sum-exp, or null (a separate argument, so that the
+// bf16 kernel's Params and code stay as they were: it sits at its register
+// limit)
+__global__ void __launch_bounds__(kThreads) na2d_kernel_fp32(const Params p, float* lse) {
   constexpr int ROW = DH * 4 + 16;
   constexpr int HALF = DH / 2;  // the dims a thread owns
   int b, n;
@@ -580,6 +587,8 @@ __global__ void __launch_bounds__(kThreads) na2d_kernel_fp32(const Params p) {
 #pragma unroll
     for (int i = 0; i < HALF / 4; ++i)
       o[i] = make_float4(acc[4 * i] * inv, acc[4 * i + 1] * inv, acc[4 * i + 2] * inv, acc[4 * i + 3] * inv);
+    if (lse != nullptr && half == 0)  // K5's softmax statistics: the window walk's max and sum
+      lse[out_row(p, b, n, th, th.q0 + tr, tw, tw.q0 + tc) / DH] = mx + logf(sum);
   }
 }
 
@@ -621,14 +630,14 @@ extern "C" int na2d_launch_shape(int B, int H, int W, int NH, int kernel, int di
 
 // Neighborhood attention forward. The wrapper checks shapes, dtypes, the
 // head dim (32), shared strides with a contiguous last dim and, for the
-// vector reads, 16-byte alignment.
-extern "C" int na2d_forward(const void* q, const void* k, const void* v, const void* rpb, void* out, int B,
-                            int H, int W, int NH, int head_dim, long long sb, long long sh, long long sw,
+// vector reads, 16-byte alignment. `lse` (fp32 only) may be null.
+extern "C" int na2d_forward(const void* q, const void* k, const void* v, const void* rpb, void* out, float* lse,
+                            int B, int H, int W, int NH, int head_dim, long long sb, long long sh, long long sw,
                             long long sn, int kernel, int dilation, float scale, int is_bf16, void* stream) {
   Params p;
   long long blocks;
   int smem;
-  if (head_dim != DH || !plan(B, H, W, NH, kernel, dilation, is_bf16, p, blocks, smem))
+  if (head_dim != DH || (is_bf16 && lse != nullptr) || !plan(B, H, W, NH, kernel, dilation, is_bf16, p, blocks, smem))
     return (int)cudaErrorInvalidValue;
   if (blocks == 0) return 0;
   p.q = q;
@@ -641,11 +650,14 @@ extern "C" int na2d_forward(const void* q, const void* k, const void* v, const v
   p.sw = sw;
   p.sn = sn;
   p.scale = scale;
-  void (*fn)(Params) = is_bf16 ? na2d_kernel_bf16 : na2d_kernel_fp32;
+  const void* fn = is_bf16 ? (const void*)na2d_kernel_bf16 : (const void*)na2d_kernel_fp32;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  fn<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
+  if (is_bf16)
+    na2d_kernel_bf16<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
+  else
+    na2d_kernel_fp32<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(p, lse);
   return (int)cudaGetLastError();
 }

@@ -33,10 +33,12 @@ the forward kernel K4 alone, `kernels/csrc/neighborhood_attention.cu`
 (`neighborhood_attention_2d_cuda`), with nothing saved. When autograd needs
 a backward, `neighborhood_attention_2d_qkv` runs
 `NeighborhoodAttention2DFunction` (`neighborhood_attention_2d` raises): K4
-forward, then K5,
+forward, which also writes each window's log-sum-exp (its fp32 kernel's
+optional `lse` output), then K5,
 `kernels/csrc/neighborhood_attention_backward.cu`
-(`neighborhood_attention_2d_backward_cuda`), which writes dq, dk and dv into
-one buffer in the qkv layout and drpb; fp32 only (training runs fp32), bf16
+(`neighborhood_attention_2d_backward_cuda`, its products on the tensor
+cores in 3xTF32), which takes that lse and writes dq, dk and dv into one
+buffer in the qkv layout and drpb; fp32 only (training runs fp32), bf16
 under autograd raises. Both kernels work on tiles of one residue class's
 sub-grid: K4 (and K5's query pass) on the halo of keys a tile's windows
 cover, each key once, weighted by how often a window repeats it
@@ -49,7 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -134,17 +136,15 @@ def _check_shapes(q, k, v, rpb, kernel: int, dilation: int) -> None:
         raise ValueError(f"rpb shape {tuple(rpb.shape)} != {(q.shape[3], 2 * kernel - 1, 2 * kernel - 1)}")
 
 
-def neighborhood_attention_2d_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rpb: torch.Tensor,
-                                    kernel: int, dilation: int = 1, scale: float = 1.0) -> torch.Tensor:
-    """The plain version: one gather of K per window offset for the logits,
-    an fp32 softmax over the k*k offsets, one gather of V per offset for the
-    weighted sum, in fp32."""
-    _check_shapes(q, k, v, rpb, kernel, dilation)
+def _plain_logits(q: torch.Tensor, k: torch.Tensor, rpb: torch.Tensor, kernel: int, dilation: int,
+                  scale: float) -> torch.Tensor:
+    """The plain version's fp32 logits (B, H, W, heads, k*k): one gather of
+    K per window offset, q scaled in its own dtype first; a clamped window's
+    repeated key is listed as often as the window repeats it."""
     B, H, W, nh, dh = q.shape
-    dtype = q.dtype
     if scale != 1.0:
         q = q * scale  # in q's dtype, as the module scales it
-    qf, kf, vf, bias = q.float(), k.float(), v.float(), rpb.float()
+    qf, kf, bias = q.float(), k.float(), rpb.float()
     idx_h, rel_h = (torch.from_numpy(a).to(q.device) for a in _axis_indices(H, kernel, dilation))
     idx_w, rel_w = (torch.from_numpy(a).to(q.device) for a in _axis_indices(W, kernel, dilation))
 
@@ -155,14 +155,37 @@ def neighborhood_attention_2d_plain(q: torch.Tensor, k: torch.Tensor, v: torch.T
             k_ab = k_row.index_select(2, idx_w[:, b])
             bias_ab = bias[:, rel_h[:, a][:, None], rel_w[:, b][None, :]]  # (nh, H, W)
             logits.append((qf * k_ab).sum(-1) + bias_ab.permute(1, 2, 0))
-    attn = torch.softmax(torch.stack(logits, dim=-1), dim=-1)  # (B, H, W, nh, k*k)
+    return torch.stack(logits, dim=-1)
 
-    out = torch.zeros_like(qf)
+
+def neighborhood_attention_2d_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rpb: torch.Tensor,
+                                    kernel: int, dilation: int = 1, scale: float = 1.0) -> torch.Tensor:
+    """The plain version: the logits (`_plain_logits`), an fp32 softmax over
+    the k*k offsets, one gather of V per offset for the weighted sum, in
+    fp32."""
+    _check_shapes(q, k, v, rpb, kernel, dilation)
+    B, H, W, nh, dh = q.shape
+    dtype = q.dtype
+    vf = v.float()
+    idx_h = torch.from_numpy(_axis_indices(H, kernel, dilation)[0]).to(q.device)
+    idx_w = torch.from_numpy(_axis_indices(W, kernel, dilation)[0]).to(q.device)
+    attn = torch.softmax(_plain_logits(q, k, rpb, kernel, dilation, scale), dim=-1)  # (B, H, W, nh, k*k)
+
+    out = torch.zeros_like(vf)
     for a in range(kernel):
         v_row = vf.index_select(1, idx_h[:, a])
         for b in range(kernel):
             out += attn[..., a * kernel + b, None] * v_row.index_select(2, idx_w[:, b])
     return out.to(dtype)
+
+
+def neighborhood_attention_2d_lse_plain(q: torch.Tensor, k: torch.Tensor, rpb: torch.Tensor, kernel: int,
+                                        dilation: int = 1, scale: float = 1.0) -> torch.Tensor:
+    """What K4's `lse` output holds, plainly: the log-sum-exp of the plain
+    version's logits over each window's k*k entries, repeats included, fp32
+    (B, H, W, heads)."""
+    _check_shapes(q, k, k, rpb, kernel, dilation)
+    return torch.logsumexp(_plain_logits(q, k, rpb, kernel, dilation, scale), dim=-1)
 
 
 def _check_cuda_args(q, k, v, rpb, kernel: int, dilation: int) -> None:
@@ -188,30 +211,39 @@ def _check_cuda_args(q, k, v, rpb, kernel: int, dilation: int) -> None:
 
 
 def neighborhood_attention_2d_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rpb: torch.Tensor,
-                                   kernel: int, dilation: int = 1, scale: float = 1.0) -> torch.Tensor:
-    """Launch K4. Counts its launches in `.launches`. Alone it has no
-    backward: with grad mode on and an input that requires grad it raises,
-    rather than return an output without a grad_fn
-    (`neighborhood_attention_2d_qkv` pairs it with K5)."""
+                                   kernel: int, dilation: int = 1, scale: float = 1.0,
+                                   lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K4. Counts its launches in `.launches`. With `lse` (fp32
+    inputs only: a contiguous (B, H, W, heads) fp32 tensor on the same card)
+    it also writes each window's log-sum-exp there, for K5; the output's
+    bytes are the same either way. Alone it has no backward: with grad mode
+    on and an input that requires grad it raises, rather than return an
+    output without a grad_fn (`neighborhood_attention_2d_qkv` pairs it with
+    K5)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, rpb)):
         raise RuntimeError("the neighborhood-attention forward kernel (K4) alone has no backward: call "
                            "neighborhood_attention_2d_qkv, which pairs it with K5, or run under no_grad")
     _check_cuda_args(q, k, v, rpb, kernel, dilation)
     B, H, W, nh, dh = q.shape
+    if lse is not None and (q.dtype != torch.float32 or lse.dtype != torch.float32 or lse.device != q.device
+                            or tuple(lse.shape) != (B, H, W, nh) or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous fp32 {(B, H, W, nh)} tensor on {q.device}, for fp32 inputs; "
+                         f"got {lse.dtype} {tuple(lse.shape)} on {lse.device} for {q.dtype}")
 
     from ..kernels import load
 
     lib = load("neighborhood_attention")
     fn = lib.na2d_forward
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 4 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     out = torch.empty((B, H, W, nh, dh), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), rpb.data_ptr(), out.data_ptr(), B, H, W, nh, dh,
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), rpb.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), B, H, W, nh, dh,
                 *q.stride()[:4], kernel, dilation, float(scale), int(q.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"neighborhood_attention kernel launch failed: cudaError {rc}")
@@ -222,12 +254,12 @@ def neighborhood_attention_2d_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Te
 neighborhood_attention_2d_cuda.launches = 0
 
 
-def _check_backward_args(qkv, rpb, out, grad_out, kernel: int, dilation: int) -> None:
+def _check_backward_args(qkv, rpb, out, lse, grad_out, kernel: int, dilation: int) -> None:
     if qkv.ndim != 6 or qkv.shape[3] != 3:
         raise ValueError(f"qkv must be (B, H, W, 3, heads, dh), got {tuple(qkv.shape)}")
     B, H, W, _, nh, dh = qkv.shape
     _check_shapes(qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2], rpb, kernel, dilation)
-    for t, name in ((qkv, "qkv"), (rpb, "rpb"), (out, "out"), (grad_out, "grad_out")):
+    for t, name in ((qkv, "qkv"), (rpb, "rpb"), (out, "out"), (lse, "lse"), (grad_out, "grad_out")):
         if not t.is_cuda or t.device != qkv.device:
             raise ValueError(f"{name} must be a CUDA tensor on {qkv.device}, got {t.device}")
         if t.dtype != torch.float32:
@@ -237,6 +269,8 @@ def _check_backward_args(qkv, rpb, out, grad_out, kernel: int, dilation: int) ->
     if tuple(out.shape) != (B, H, W, nh, dh) or tuple(grad_out.shape) != (B, H, W, nh, dh):
         raise ValueError(f"out and grad_out must be {(B, H, W, nh, dh)}, got {tuple(out.shape)}, "
                          f"{tuple(grad_out.shape)}")
+    if tuple(lse.shape) != (B, H, W, nh):
+        raise ValueError(f"lse must be {(B, H, W, nh)}, got {tuple(lse.shape)}")
     if dh != KERNEL_HEAD_DIM:
         raise ValueError(f"the kernel is built for head dim {KERNEL_HEAD_DIM}, got {dh}")
 
@@ -257,14 +291,14 @@ def _k5_launch_shape(lib, B: int, H: int, W: int, nh: int, kernel: int, dilation
 
 
 def neighborhood_attention_2d_backward_cuda(qkv: torch.Tensor, rpb: torch.Tensor, out: torch.Tensor,
-                                            grad_out: torch.Tensor, kernel: int, dilation: int = 1,
-                                            scale: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+                                            lse: torch.Tensor, grad_out: torch.Tensor, kernel: int,
+                                            dilation: int = 1, scale: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K5 (three kernels, one call): the gradients of
     `neighborhood_attention_2d_cuda(qkv[:, :, :, 0], qkv[:, :, :, 1],
-    qkv[:, :, :, 2], rpb, kernel, dilation, scale)`, whose output was `out`,
-    for `grad_out`: (dqkv in qkv's layout, drpb). fp32 only. Counts its
-    calls in `.launches`."""
-    _check_backward_args(qkv, rpb, out, grad_out, kernel, dilation)
+    qkv[:, :, :, 2], rpb, kernel, dilation, scale, lse)`, whose output was
+    `out` and whose log-sum-exp was `lse`, for `grad_out`: (dqkv in qkv's
+    layout, drpb). fp32 only. Counts its calls in `.launches`."""
+    _check_backward_args(qkv, rpb, out, lse, grad_out, kernel, dilation)
     B, H, W, _, nh, dh = qkv.shape
 
     from ..kernels import load
@@ -277,13 +311,12 @@ def neighborhood_attention_2d_backward_cuda(qkv: torch.Tensor, rpb: torch.Tensor
         fn.restype = ctypes.c_int
     dqkv = torch.empty_like(qkv)
     drpb = torch.empty_like(rpb)
-    lse = torch.empty((B, H, W, nh), dtype=torch.float32, device=qkv.device)
-    dsum = torch.empty_like(lse)
+    stats = torch.empty(lse.shape + (4,), dtype=torch.float32, device=qkv.device)
     partial = torch.empty((max(blocks, 1), (2 * kernel - 1) ** 2), dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(qkv.data_ptr(), rpb.data_ptr(), out.data_ptr(), grad_out.data_ptr(), dqkv.data_ptr(),
-                drpb.data_ptr(), lse.data_ptr(), dsum.data_ptr(), partial.data_ptr(), B, H, W, nh, dh, kernel,
+        rc = fn(qkv.data_ptr(), rpb.data_ptr(), out.data_ptr(), grad_out.data_ptr(), lse.data_ptr(),
+                dqkv.data_ptr(), drpb.data_ptr(), stats.data_ptr(), partial.data_ptr(), B, H, W, nh, dh, kernel,
                 dilation, float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"neighborhood_attention backward kernel launch failed: cudaError {rc}")
@@ -308,8 +341,8 @@ def neighborhood_attention_2d_backward_plain(qkv: torch.Tensor, rpb: torch.Tenso
 
 class NeighborhoodAttention2DFunction(torch.autograd.Function):
     """K4 forward and K5 backward, on the qkv projection's whole output:
-    saves qkv, rpb and the output, and returns dqkv (dq scaled, as q is
-    scaled inside) and drpb. fp32 only."""
+    saves qkv, rpb, the output and K4's log-sum-exp of each window, and
+    returns dqkv (dq scaled, as q is scaled inside) and drpb. fp32 only."""
 
     @staticmethod
     def forward(ctx, qkv: torch.Tensor, rpb: torch.Tensor, kernel: int, dilation: int, scale: float) -> torch.Tensor:
@@ -317,16 +350,18 @@ class NeighborhoodAttention2DFunction(torch.autograd.Function):
             raise ValueError(f"neighborhood attention under autograd on CUDA is fp32 only (its backward kernel "
                              f"K5 is fp32; training runs in fp32), got {qkv.dtype}: run bf16 under no_grad")
         qkv = qkv.contiguous()
+        lse = torch.empty(qkv.shape[:3] + qkv.shape[4:5], dtype=torch.float32, device=qkv.device)
         out = neighborhood_attention_2d_cuda(qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2], rpb, kernel,
-                                             dilation, scale)
-        ctx.save_for_backward(qkv, rpb, out)
+                                             dilation, scale, lse)
+        ctx.save_for_backward(qkv, rpb, out, lse)
         ctx.geometry = (kernel, dilation, scale)
         return out
 
     @staticmethod
     def backward(ctx, grad_out: torch.Tensor):
-        qkv, rpb, out = ctx.saved_tensors
-        dqkv, drpb = neighborhood_attention_2d_backward_cuda(qkv, rpb, out, grad_out.contiguous(), *ctx.geometry)
+        qkv, rpb, out, lse = ctx.saved_tensors
+        dqkv, drpb = neighborhood_attention_2d_backward_cuda(qkv, rpb, out, lse, grad_out.contiguous(),
+                                                             *ctx.geometry)
         return dqkv, drpb, None, None, None
 
 
