@@ -12,7 +12,8 @@ k2_vs_plain, k3_vs_plain, k4_vs_plain, k5_vs_plain, serve, stages, profile,
 kernels_on_served_tensors, reference_small, sequence, sequence_stages, frame,
 predictor, sequence_reference_small, train, train_reference_small,
 train_deterministic, train_backbones (one line per config), train_entry,
-eval, and backbones (one line per config).
+eval, backbones (one line per config), convert, demo and eval_ade20k.
+Each line carries `elapsed_s`, the seconds since the script started.
 Then the card's name and power limit as nvidia-smi reports them, the
 {"kernels": [...]} line, and last {"ok": true, "device": {...}}. Any failure
 raises and the script exits non-zero without the last line. It needs a CUDA
@@ -121,6 +122,28 @@ per-class IoU is NaN where the class is in neither GT nor prediction), K2
 launched 6 times per segmentation forward, and the same evaluators fed the
 GT must score PQ = mIoU = AP = 100.
 
+The phase `convert` runs the checkpoint-conversion command line,
+`tools/convert_checkpoint_torch.py --backbone swin`, on eval's recipe of a
+reference-style .pth split into two files; `evaluate_torch.build_model`
+from its output must equal the .pth load byte for byte. The phase `demo`
+runs `demo_torch.main --task panoptic` on Swin-T (the converted
+checkpoint) and on configs/cityscapes_dinat.yaml, 2 synthetic 1024x2048
+frames each with their t-2 frames: 8 renderings a frame at their sizes,
+K2 6 and K1 0 launches a frame, K4 60 on DiNAT-L (a segmentation and a
+sequence backbone pass) and 0 on Swin-T, and matplotlib never imported;
+it reports predict and render seconds per frame. The phase `eval_ade20k`
+runs `evaluate_torch.main` on Swin-T with the 150-class head at ADE20K's
+test resize over 4 synthetic 512x683 val images, --task panoptic and
+--task instance: finite metrics, K2 6 launches per image, an instance kept
+on every image (THING_LOGIT_BIAS), and the GT fed back through the same
+evaluators scoring PQ = mIoU = AP = 100. Both `demo` (on Swin-T's first
+frame, resized to its config's 384x768) and `eval_ade20k` (on the first
+image, resized to 512x683, ragged level grids) hold K2 against its plain
+version on the tensors that the entry point's own first deformable
+attention call, layer 0 of the pixel decoder, was given. These three
+come after `eval` and `backbones`: they import PIL (labels, JPEG) and cv2
+(COCO polygons), which the Cityscapes evaluation must not.
+
 Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of HBM, 67 TFLOP/s
 of fp32 outside the tensor cores, 495 TFLOP/s of TF32 and 989 TFLOP/s of
 bf16 on them (at the 700 W power limit). K1 runs its semantic product on
@@ -136,6 +159,7 @@ K4's and K5's no spill) and the HMMA counts of K1's, K4's and K5's SASS
 K5's products run on tensor cores).
 """
 
+import contextlib
 import ctypes
 import json
 import os
@@ -148,6 +172,7 @@ import time
 import numpy as np
 import torch
 
+T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
@@ -218,6 +243,22 @@ EVAL_PLANTED = {"motion_decoder.layer1.0.weight": (256, 1536, 1, 1),
                 "text_encoder.transformer.resblocks.0.attn.in_proj_weight": (768, 256)}
 BACKBONE_CONFIGS = {"resnet": "configs/cityscapes_r18.yaml", "convnext": "configs/cityscapes_convnext.yaml",
                     "dinat": "configs/cityscapes_dinat.yaml"}
+DEMO_CONFIGS = {"swin": TRAIN_ENTRY_CONFIG, "dinat": BACKBONE_CONFIGS["dinat"]}
+DEMO_FRAMES = 2  # synthetic 1024x2048 frames per config, each with its t-2 frame
+# a panoptic demo frame's renderings and their shapes
+DEMO_RENDERINGS = {**{k: (SEQ_H, SEQ_W, 3) for k in ("depth", "ego_flow", "independent_flow", "total_flow")},
+                   "motion_mask": (SEQ_H, SEQ_W), **{k: (SEG_H, SEG_W, 3) for k in ("semantic", "panoptic", "instance")}}
+ADE_SET = "ade20k_panoptic_val"
+ADE_IMAGES = 4  # synthetic val images (reduced: the real val split holds 2000)
+# added to the thing classes' logits of the ADE20K model's random class head
+# (after its x8): without it the top class of every query is a stuff class,
+# and the instance run keeps nothing
+THING_LOGIT_BIAS = 20.0
+ADE_HW = (512, 683)  # ADE20K's common val size
+# Swin-T with the 150-class head at OneFormer's ADE20K test resize
+ADE_OVERRIDES = ["model.sem_seg_head.num_classes=150", "input.seg_min_size_test=512", "input.seg_max_size_test=2048",
+                 "datasets.depth_test=[]", f"datasets.seg_test_panoptic=[{ADE_SET}]",
+                 f"datasets.seg_test_instance=[{ADE_SET}]"]
 N_BACKBONE_REQUESTS = 2  # served per config and request kind with the launch counts read; one more profiled
 # The share of pred_logits / pred_masks elements the backbones phase's
 # card-against-CPU check lets past its tolerance: on the CPU alone, N(0, 1e-5)
@@ -230,7 +271,7 @@ SMALL_PRED_MAX_ERR = 5e-2
 
 
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields, "elapsed_s": time.perf_counter() - T_START}), flush=True)
 
 
 def cuda_ms(fn, reps):
@@ -325,6 +366,45 @@ def compare_msda(got, ref, fp32, name="K2"):
             raise AssertionError(f"{name} bf16: {int(bad.sum())} values beyond 1 ulp + 1e-5, worst "
                                  f"kernel {got.flatten()[i].item()} plain {ref.flatten()[i].item()}")
     return err.max().item()
+
+
+@contextlib.contextmanager
+def first_msda_call():
+    """Within the block, records the module and inputs of the first
+    deformable-attention call (MSDeformAttnModule: layer 0 of the pixel
+    decoder's encoder, on the first image) into the yielded list; a global
+    forward hook, removed at that call."""
+    from uni_encoder_tpu_torch.models.pixel_decoders.msdeformattn import MSDeformAttnModule
+
+    seen = []
+
+    def hook(module, args, out):
+        if isinstance(module, MSDeformAttnModule) and not seen:
+            seen.append((module, args))
+            handle.remove()
+
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    try:
+        yield seen
+    finally:
+        handle.remove()
+
+
+def k2_on_recorded_call(seen):
+    """K2 against its plain version on the value, offsets and logits that
+    `first_msda_call`'s recorded module computes from its recorded inputs,
+    at compare_msda's tolerance for their dtype (it raises past it)."""
+    from uni_encoder_tpu_torch.ops.ms_deform_attn import ms_deform_attn_fused_cuda, ms_deform_attn_fused_plain
+
+    (attn, (query, ref_abs, value_src, shapes)), = seen
+    with torch.inference_mode():
+        value = attn.value_proj(value_src).view(*value_src.shape[:2], attn.n_heads, -1)
+        off, logits = attn.sampling_offsets(query), attn.attention_weights(query)
+        err = compare_msda(ms_deform_attn_fused_cuda(value, shapes, off, logits, ref_abs),
+                           ms_deform_attn_fused_plain(value, shapes, off, logits, ref_abs),
+                           fp32=value.dtype == torch.float32)
+    return {"max_abs_err": err, "value_shape": list(value.shape), "dtype": str(value.dtype).replace("torch.", ""),
+            "level_grids": torch.as_tensor(shapes).tolist()}
 
 
 def k1_bound(Q, K, h, w):
@@ -745,6 +825,24 @@ def eval_summary(timings):
             "steady_loader_wait_share": steady_share}
 
 
+def reference_weights(model_cfg, dev, planted_shapes=EVAL_PLANTED, thing_classes=()):
+    """Random full-width weights from seed 0 on `dev`, the class head x8 (so
+    that queries clear the 0.8 threshold) and THING_LOGIT_BIAS on the
+    columns of `thing_classes`: the model that holds them, its state dict on
+    the host, and random host tensors under `planted_shapes`' keys, which the
+    model does not own (a reference checkpoint's extras)."""
+    from uni_encoder_tpu_torch.models.oneformer import UniEncoder
+
+    writer = UniEncoder(model_cfg, device=dev, seed=0)
+    with torch.no_grad():
+        writer.predictor.class_embed.weight.mul_(8.0)
+        writer.predictor.class_embed.bias[list(thing_classes)] += THING_LOGIT_BIAS
+    saved = {k: v.detach().cpu().clone() for k, v in writer.state_dict().items()}
+    g = torch.Generator().manual_seed(5)
+    planted = {k: torch.randn(*shape, generator=g) for k, shape in planted_shapes.items()}
+    return writer, saved, planted
+
+
 def eval_phase(dev, smi):
     """The evaluation entry point at full width on the card: a synthetic
     Cityscapes / KITTI tree in the datasets' layouts (EVAL_SEG_IMAGES per dataset:
@@ -766,7 +864,6 @@ def eval_phase(dev, smi):
     from uni_encoder_tpu_torch.data.tokenizer import tokenize_task
     from uni_encoder_tpu_torch.engine import checkpoint as ckpt
     from uni_encoder_tpu_torch.inference.fused_postprocess import fused_postprocess_cuda
-    from uni_encoder_tpu_torch.models.oneformer import UniEncoder
     from uni_encoder_tpu_torch.ops.ms_deform_attn import ms_deform_attn_fused_cuda
 
     t_phase = time.perf_counter()
@@ -792,12 +889,7 @@ def eval_phase(dev, smi):
             lanczos_ms.append((time.perf_counter() - t0) * 1e3)
 
         # ---- a reference-style .pth of random full-width weights
-        writer = UniEncoder(cfg.model, device=dev, seed=0)
-        with torch.no_grad():
-            writer.predictor.class_embed.weight.mul_(8.0)
-        saved = {k: v.detach().cpu().clone() for k, v in writer.state_dict().items()}
-        g = torch.Generator().manual_seed(5)
-        planted = {k: torch.randn(*shape, generator=g) for k, shape in EVAL_PLANTED.items()}
+        writer, saved, planted = reference_weights(cfg.model, dev)
         pth = os.path.join(root, "model_final.pth")
         t0 = time.perf_counter()
         torch.save({"model": {**saved, **planted}}, pth)
@@ -1717,6 +1809,212 @@ def backbones_phase(dev, smi, kernel_fns):
     return launched
 
 
+def convert_phase(dev, smi, root):
+    """The checkpoint-conversion command line at full width: eval's recipe
+    of a reference-style .pth (random Swin-T weights from seed 0, class
+    head x8, EVAL_PLANTED keys the model does not own) split into two .pth
+    files, `tools/convert_checkpoint_torch.py` on them (`--backbone swin`:
+    configs/cityscapes_swin_unified.yaml, tensors on the card) into
+    root/converted, and `evaluate_torch.build_model` from its output against
+    the .pth load, byte for byte. Returns the converted checkpoint's
+    directory (the Swin-T demo's weights)."""
+    import contextlib
+    import io
+
+    import evaluate_torch
+    from uni_encoder_tpu_torch.config import load_config
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import convert_checkpoint_torch
+
+    t_phase = time.perf_counter()
+    cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), TRAIN_ENTRY_CONFIG))
+    writer, saved, planted = reference_weights(cfg.model, dev)
+    del writer
+    state = {**saved, **planted}
+    pth = os.path.join(root, "model_final.pth")
+    torch.save({"model": state}, pth)
+    keys = sorted(state)
+    parts = [os.path.join(root, f"model_part{i}.pth") for i in (0, 1)]
+    for path, part in zip(parts, (keys[: len(keys) // 2], keys[len(keys) // 2:])):
+        torch.save({"model": {k: state[k] for k in part}}, path)
+    out = os.path.join(root, "converted")
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        written = convert_checkpoint_torch.main([*parts, "-o", out, "--backbone", "swin"])
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    converted, report = evaluate_torch.build_model(cfg, out, dev)
+    load_s = time.perf_counter() - t0
+    direct, direct_report = evaluate_torch.build_model(cfg, pth, dev)
+    a, b = converted.state_dict(), direct.state_dict()
+    lines = printed.getvalue().splitlines()
+    checks = {
+        "state_byte_equal_to_the_pth_load": sorted(a) == sorted(b) == sorted(saved) and all(
+            a[k].cpu().numpy().tobytes() == b[k].cpu().numpy().tobytes() == saved[k].numpy().tobytes() for k in saved),
+        "nothing_unused_in_the_converted": report.unused == [],
+        "pth_unused_exactly_the_planted": direct_report.unused == sorted(planted),
+        "printed_the_planted_keys": lines[1:1 + len(planted)] == [f"  {k}" for k in sorted(planted)],
+        "checkpoint_file": written == os.path.join(out, "step_0.pt") and os.path.isfile(written),
+    }
+    del converted, direct, a, b
+    torch.cuda.empty_cache()
+    emit("convert", config=TRAIN_ENTRY_CONFIG, inputs=[os.path.basename(p) for p in parts],
+         input_mb=[os.path.getsize(p) / 1e6 for p in parts], checkpoint_mb=os.path.getsize(written) / 1e6,
+         printed=lines, convert_s=convert_s, build_model_from_converted_s=load_s, checks=checks,
+         seconds=time.perf_counter() - t_phase, card=smi)
+    fail_unless("convert", checks)
+    return out
+
+
+def demo_phase(dev, smi, kernel_fns, swin_weights):
+    """The demo entry point, `demo_torch.main --task panoptic`, at full width
+    and depth on the Swin-T (`swin_weights`: the convert phase's checkpoint)
+    and DiNAT-L configs (random weights from seed 0, class head x8, written
+    as a .pth): DEMO_FRAMES synthetic 1024x2048 frames with their t-2 frames
+    in leftImg8bit_sequence (`synthetic.write_cityscapes_sequence`). Checks
+    the 8 renderings of every frame at their sizes (read back from the
+    written PNGs), the launches per frame (K2 6, K1 0, K4 one per NAT layer
+    in each of the two backbone passes on DiNAT-L, 0 on Swin-T) and that
+    nothing imported matplotlib; reports predict / render seconds per frame.
+    On Swin-T's first frame, K2 against its plain version on what the demo
+    gave layer 0 of the pixel decoder (first_msda_call). Returns each
+    config's launches."""
+    import tempfile
+
+    import demo_torch
+    from uni_encoder_tpu_torch.config import load_config
+    from uni_encoder_tpu_torch.data import image_io, synthetic
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    checks, launched, runs = {}, {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        synthetic.write_cityscapes_sequence(root, DEMO_FRAMES, (SEG_H, SEG_W), depth_hw=(8, 8))
+        pattern = os.path.join(root, "cityscapes_crop/leftImg8bit/test", synthetic.CITY, "*_leftImg8bit.png")
+        for name, path in DEMO_CONFIGS.items():
+            cfg = load_config(os.path.join(here, path))
+            weights = swin_weights if name == "swin" else None
+            if weights is None:
+                weights = os.path.join(root, f"{name}.pth")
+                writer, saved, _ = reference_weights(cfg.model, dev, {})
+                del writer
+                torch.save({"model": saved}, weights)
+                del saved
+            reset_launches(*kernel_fns.values())
+            timings = []
+            t0 = time.perf_counter()
+            with first_msda_call() if name == "swin" else contextlib.nullcontext() as seen:
+                written = demo_torch.main(["--config", os.path.join(here, path), "--weights", weights, "--input",
+                                           pattern, "--output", os.path.join(root, f"out_{name}"), "--task",
+                                           "panoptic"], timings=timings)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launched[name] = {k: fn.launches for k, fn in kernel_fns.items()}
+            if name == "swin":
+                k2 = k2_on_recorded_call(seen)
+                del seen
+            shapes = {img: {r: image_io.read_png(p).shape for r, p in outs.items()} for img, outs in written.items()}
+            n, nat_layers = len(written), (sum(cfg.model.backbone.dinat.depths) if name == "dinat" else 0)
+            checks[f"{name}_frames"] = n == DEMO_FRAMES
+            checks[f"{name}_renderings"] = all(s == DEMO_RENDERINGS for s in shapes.values())
+            checks[f"{name}_k2_launches"] = launched[name]["k2"] == cfg.model.sem_seg_head.transformer_enc_layers * n
+            checks[f"{name}_k4_launches"] = launched[name]["k4"] == 2 * nat_layers * n
+            checks[f"{name}_k1_k3_k5_launches"] = launched[name]["k1"] == launched[name]["k3"] == launched[name]["k5"] == 0
+            runs[name] = {"wall_s": wall_s, "launches": launched[name],
+                          "per_frame": {k: [t[k] for t in timings] for k in ("predict_s", "render_s", "read_s",
+                                                                             "write_s", "seconds", "segments",
+                                                                             "instances")}}
+            torch.cuda.empty_cache()
+    checks["no_matplotlib_imported"] = "matplotlib" not in sys.modules
+    emit("demo", frames=[DEMO_FRAMES, SEG_H, SEG_W], task="panoptic", configs=DEMO_CONFIGS,
+         renderings={k: list(v) for k, v in DEMO_RENDERINGS.items()}, runs=runs, k2_swin_first_frame_layer0=k2,
+         checks=checks,
+         seconds=time.perf_counter() - t_phase, card=smi)
+    fail_unless("demo", checks)
+    return launched
+
+
+def eval_ade20k_phase(dev, smi, kernel_fns):
+    """ADE20K evaluation through `evaluate_torch.main` on the production
+    Swin-T with the 150-class head (random weights from seed 0, class head
+    x8, a .pth), at OneFormer's ADE20K test resize (shortest side 512,
+    longest 2048), on ADE_IMAGES synthetic 512x683 val images
+    (`synthetic.write_ade20k`), --task panoptic (PQ + mIoU) and --task
+    instance (AP over the 100 thing classes). Checks finite metrics in the
+    expected groups, K2 6 launches per image and K1, K3, K4, K5 none, an
+    instance kept on every image of the instance run (the thing classes'
+    logits biased by THING_LOGIT_BIAS), and that the same evaluators fed the
+    GT score 100. On the panoptic run's first image, K2 against its plain
+    version on what the run gave layer 0 of the pixel decoder
+    (first_msda_call). Returns each task's launches."""
+    import tempfile
+
+    import evaluate_torch
+    from uni_encoder_tpu_torch.config import load_config
+    from uni_encoder_tpu_torch.data import synthetic
+    from uni_encoder_tpu_torch.data.build import build_test_loader
+    from uni_encoder_tpu_torch.data.mappers import TestMapper
+    from uni_encoder_tpu_torch.data.prep import ade20k_150_categories
+
+    t_phase = time.perf_counter()
+    cfg = load_config(None, ADE_OVERRIDES)
+    things = [c["id"] for c in ade20k_150_categories() if c["isthing"]]
+    groups = {"panoptic": ["panoptic_seg", "sem_seg"], "instance": ["segm"]}
+    checks, runs = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        synthetic.write_ade20k(root, "val", ADE_IMAGES, ADE_HW)
+        fixture_s = time.perf_counter() - t0
+        pth = os.path.join(root, "ade20k_model.pth")
+        writer, saved, _ = reference_weights(cfg.model, dev, {}, things)
+        del writer
+        torch.save({"model": saved}, pth)
+        del saved
+        for task in groups:
+            reset_launches(*kernel_fns.values())
+            timings = []
+            t0 = time.perf_counter()
+            with first_msda_call() if task == "panoptic" else contextlib.nullcontext() as seen:
+                results = evaluate_torch.main(["--weights", pth, "--datasets-root", root, "--task", task,
+                                               *ADE_OVERRIDES], timings=timings)
+            torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in kernel_fns.items()}
+            if task == "panoptic":
+                k2 = k2_on_recorded_call(seen)
+                del seen
+            runs[task] = {"wall_s": time.perf_counter() - t0, "launches": launches, "timing": eval_summary(timings),
+                          "metrics": results["seg_and_depth"]}
+            checks[f"{task}_metrics_finite"], runs[task]["nan_iou_classes"] = finite_metrics(results)
+            checks[f"{task}_groups"] = sorted(results["seg_and_depth"]) == [f"{ADE_SET}/{g}" for g in groups[task]]
+            checks[f"{task}_k2_launches"] = launches["k2"] == cfg.model.sem_seg_head.transformer_enc_layers * ADE_IMAGES
+            checks[f"{task}_other_launches"] = launches["k1"] == launches["k3"] == launches["k4"] == launches["k5"] == 0
+            torch.cuda.empty_cache()
+        kept = runs["instance"]["timing"]["per_dataset"][ADE_SET]["per_image"]["instances"]
+        checks["instance_kept_on_every_image"] = len(kept) == ADE_IMAGES and min(kept) > 0
+
+        # ---- the same evaluators fed the GT
+        perfect = {}
+        for task in groups:
+            ev = evaluate_torch.build_evaluator(ADE_SET, task)
+            ev.reset()
+            mapper = TestMapper(task=task, seg_min_size=cfg.input.seg_min_size_test,
+                                seg_max_size=cfg.input.seg_max_size_test)
+            for item in build_test_loader(ADE_SET, mapper):
+                ev.process([item], [synthetic.ade20k_gt_as_prediction(item)])
+            r = ev.evaluate()
+            perfect.update({"PQ": r["panoptic_seg"]["PQ"], "mIoU": r["sem_seg"]["mIoU"]} if task == "panoptic"
+                           else {"AP": r["segm"]["AP"]})
+        checks["gt_fed_back_perfect"] = all(abs(v - 100.0) < 1e-9 for v in perfect.values())
+    emit("eval_ade20k", images=[ADE_IMAGES, *ADE_HW], overrides=ADE_OVERRIDES, thing_logit_bias=THING_LOGIT_BIAS,
+         fixture_s=fixture_s, runs=runs, k2_first_image_layer0=k2,
+         gt_fed_back=perfect, checks=checks, seconds=time.perf_counter() - t_phase, card=smi)
+    fail_unless("eval_ade20k", checks)
+    return {task: r["launches"] for task, r in runs.items()}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2373,6 +2671,19 @@ def main():
 
     # ---------------- the ResNet-18, ConvNeXt-L and DiNAT-L configs, served
     backbone_launches = backbones_phase(dev, smi, kernel_fns)
+    torch.cuda.empty_cache()
+
+    # ---------------- the checkpoint-conversion command line, the demo on its
+    # output (Swin-T) and on DiNAT-L, and ADE20K evaluation (after eval, which
+    # checks that the Cityscapes path imports neither PIL nor cv2: these draw
+    # labels, read JPEG files and fill polygons)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as convert_root:
+        converted = convert_phase(dev, smi, convert_root)
+        demo_launches = demo_phase(dev, smi, kernel_fns, converted)
+    torch.cuda.empty_cache()
+    ade20k_eval_launches = eval_ade20k_phase(dev, smi, kernel_fns)
 
     print(smi, flush=True)
     rows = []
@@ -2382,7 +2693,9 @@ def main():
     # two evaluate_torch runs (phase eval), backbones_launches those of the
     # three configs' served requests (phase backbones), train_backbones_launches
     # those of the three configs' timed training steps (phase
-    # train_backbones); K4's launches are the DiNAT config's served requests',
+    # train_backbones), demo_launches those of the two demo_torch runs (phase
+    # demo), ade20k_eval_launches those of the two ADE20K evaluate_torch runs
+    # (phase eval_ade20k); K4's launches are the DiNAT config's served requests',
     # both kinds, K5's the DiNAT config's timed training steps'
     launches["k3"] = train_launches["k3"]
     launches["k4"] = sum(backbone_launches["dinat"][kind]["k4"] for kind in ("segmentation", "sequence"))
@@ -2408,6 +2721,8 @@ def main():
                      "backbones_launches": {name: {kind: n[key] for kind, n in per.items()}
                                             for name, per in backbone_launches.items()},
                      "train_backbones_launches": {name: n[key] for name, n in train_backbone_launches.items()},
+                     "demo_launches": {name: n[key] for name, n in demo_launches.items()},
+                     "ade20k_eval_launches": {task: n[key] for task, n in ade20k_eval_launches.items()},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r.get("library_ms"),

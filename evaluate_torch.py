@@ -6,7 +6,10 @@ DATASETS.DEPTH_TEST, then DATASETS.SEG_TEST_{TASK}, builds the evaluator
 for each dataset's evaluator_type, runs single-image inference through the
 port's `Predictor` (or `SemanticTTA` with TEST.AUG for the semantic task)
 and merges every metric under "seg_and_depth". Datasets: the Cityscapes
-panoptic and sequence splits and KITTI; ADE20K and COCO are not ported yet.
+panoptic and sequence splits, KITTI, ADE20K (panoptic: PQ + mIoU; semantic:
+mIoU; instance: AP over its 100 thing classes) and any COCO-format instance
+json registered with `data/datasets/coco.py::register_coco_instances` (AP).
+JPEG images (ADE20K, COCO) are decoded by PIL, imported when one is read.
 
 Weights: a reference d2 `.pkl` or torch `.pth`, or a port checkpoint
 directory (`uni_encoder_tpu_torch/engine/checkpoint.py`); orbax directories
@@ -46,15 +49,32 @@ def build_evaluator(dataset_name: str, task: str):
     from uni_encoder_tpu_torch.evaluation.kitti import KITTIDepthEvaluator
 
     etype = MetadataCatalog.get(dataset_name).get("evaluator_type")
-    if etype in ("coco_instance", "ade20k_panoptic_seg"):
-        raise NotImplementedError(f"the {etype!r} evaluator is not ported yet "
-                                  "(ROADMAP Queue 1 item 3: ADE20K and COCO evaluation)")
+    if etype == "coco_instance":
+        from uni_encoder_tpu_torch.evaluation.coco import COCOInstanceEvaluator
+
+        return COCOInstanceEvaluator(dataset_name)
     if etype == "cityscapes_depth":
         return CityscapesDepthEvaluator(dataset_name)
     if etype == "kitti_depth":
         return KITTIDepthEvaluator(dataset_name)
     if etype == "sem_seg":
         return CityscapesSemSegEvaluator(dataset_name)
+    if etype == "ade20k_panoptic_seg":
+        # reference train_net.py:92-149: COCOPanopticEvaluator + SemSegEvaluator
+        # (+ InstanceSegEvaluator over the COCO-format instance json). AP needs
+        # predictions made with the instance task token (the reference gates
+        # its label remap on 'instance' in task_type), so a panoptic run
+        # reports PQ + mIoU only
+        from uni_encoder_tpu_torch.evaluation.coco import COCOInstanceEvaluator
+
+        n_things = len(MetadataCatalog.get(dataset_name).get("instance_classes") or []) or 100
+        if task == "semantic":
+            evals = [CityscapesSemSegEvaluator(dataset_name)]
+        elif task == "instance":
+            evals = [COCOInstanceEvaluator(dataset_name, num_classes=n_things)]
+        else:
+            evals = [CityscapesPanopticEvaluator(dataset_name), CityscapesSemSegEvaluator(dataset_name)]
+        return DatasetEvaluators(evals)
     if etype in ("cityscapes_panoptic_seg", "cityscapes_sem_seg", "cityscapes_instance"):
         evals = []
         if task == "semantic":
@@ -69,6 +89,18 @@ def build_evaluator(dataset_name: str, task: str):
     raise ValueError(f"no evaluator for type {etype!r} (dataset {dataset_name})")
 
 
+def build_structure(cfg, device=None, dtype: torch.dtype = torch.float32) -> torch.nn.Module:
+    """The port's UniEncoder for `cfg` in `dtype` on `device` (None: the GPU,
+    raising without one), its tensors left uninitialized: no random weights
+    are drawn, for a checkpoint to fill every one (`load_into` raises on a
+    tensor it does not fill)."""
+    from uni_encoder_tpu_torch.device import resolve_device
+    from uni_encoder_tpu_torch.models.oneformer import UniEncoder
+
+    model = UniEncoder(cfg.model, device="meta", dtype=dtype, task_seq_len=cfg.input.task_seq_len)
+    return model.to_empty(device=resolve_device(device))
+
+
 def build_model(cfg, weights: Optional[str] = None, device=None) -> Tuple[torch.nn.Module, object]:
     """The port's UniEncoder in `cfg.model.dtype` on `device` (None: the
     GPU, raising without one), with `weights` loaded: a `.pkl` / `.pth`
@@ -79,7 +111,10 @@ def build_model(cfg, weights: Optional[str] = None, device=None) -> Tuple[torch.
     from uni_encoder_tpu_torch.models.oneformer import UniEncoder
 
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.model.dtype]
-    model = UniEncoder(cfg.model, device=device, dtype=dtype, seed=0, task_seq_len=cfg.input.task_seq_len)
+    if weights:
+        model = build_structure(cfg, device, dtype)
+    else:
+        model = UniEncoder(cfg.model, device=device, dtype=dtype, seed=0, task_seq_len=cfg.input.task_seq_len)
     logger.info(f"Total Params: {sum(p.numel() for p in model.parameters()) / 1e6:.2f} M")
     if not weights:
         logger.warning("no weights given: evaluating a randomly initialized model")

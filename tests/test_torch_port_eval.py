@@ -334,9 +334,19 @@ def test_evaluate_main_needs_a_gpu_unless_told_cpu(tree, monkeypatch):
 
 @pytest.mark.parametrize("etype", ["ade20k_panoptic_seg", "coco_instance"])
 def test_unported_evaluators_raise(etype):
+    """The two evaluator types that raised NotImplementedError before ADE20K
+    and COCO evaluation were ported now route as evaluate.py routes them
+    (tests/test_torch_port_ade_coco.py holds their metrics against JAX)."""
     import evaluate_torch
     from uni_encoder_tpu_torch.data.catalog import MetadataCatalog
+    from uni_encoder_tpu_torch.evaluation.cityscapes import CityscapesPanopticEvaluator, CityscapesSemSegEvaluator
+    from uni_encoder_tpu_torch.evaluation.coco import COCOInstanceEvaluator
 
     MetadataCatalog.get(f"unported_{etype}").set(evaluator_type=etype)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        evaluate_torch.build_evaluator(f"unported_{etype}", "panoptic")
+    ev = evaluate_torch.build_evaluator(f"unported_{etype}", "panoptic")
+    if etype == "coco_instance":
+        assert isinstance(ev, COCOInstanceEvaluator)
+    else:
+        assert [type(e) for e in ev._evaluators] == [CityscapesPanopticEvaluator, CityscapesSemSegEvaluator]
+        inst = evaluate_torch.build_evaluator(f"unported_{etype}", "instance")._evaluators
+        assert len(inst) == 1 and isinstance(inst[0], COCOInstanceEvaluator) and inst[0].num_classes == 100

@@ -1,11 +1,14 @@
 """The port imports neither jax/flax nor anything of the JAX package, and
-neither PIL nor cv2 when it is imported.
+neither PIL, cv2 nor matplotlib when it is imported.
 
 tests/conftest.py imports jax for every test, so the import check runs in a
 fresh interpreter; a source scan backs it up for imports that only run
 inside functions. The port's sources, `evaluate_torch.py`, `train_torch.py`,
-`chip_smoke.py` and `k5_variants.py` are checked, and the train mappers
-import neither PIL nor cv2 when they run.
+`demo_torch.py`, `tools/convert_checkpoint_torch.py`, `chip_smoke.py` and
+`k5_variants.py` are checked. PIL and cv2 are imported inside functions in
+named places only (CALL_TIME_IMPORTS: JPEG files, the demo's text labels,
+COCO polygons), matplotlib nowhere, and the train mappers import neither
+PIL nor cv2 when they run.
 """
 
 import os
@@ -22,10 +25,14 @@ import uni_encoder_tpu_torch as port
 for m in pkgutil.walk_packages(port.__path__, "uni_encoder_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+import demo_torch
 import evaluate_torch
 import k5_variants
 import train_torch
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "jaxlib", "uni_encoder_tpu", "PIL", "cv2"))
+sys.path.insert(0, "tools")
+import convert_checkpoint_torch
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "flax", "jaxlib", "uni_encoder_tpu", "PIL", "cv2", "matplotlib"))
 print(bad)
 sys.exit(1 if bad else 0)
 """
@@ -47,6 +54,16 @@ def _sources():
     yield os.path.join(REPO, "evaluate_torch.py")
     yield os.path.join(REPO, "train_torch.py")
     yield os.path.join(REPO, "k5_variants.py")
+    yield os.path.join(REPO, "demo_torch.py")
+    yield os.path.join(REPO, "tools", "convert_checkpoint_torch.py")
+
+
+# the only places that import PIL or cv2, each inside the function that needs it
+CALL_TIME_IMPORTS = {
+    os.path.join("uni_encoder_tpu_torch", "data", "image_io.py"): {"PIL"},  # JPEG read / write
+    os.path.join("uni_encoder_tpu_torch", "demo", "visualizer.py"): {"PIL"},  # text labels (_draw_text)
+    os.path.join("uni_encoder_tpu_torch", "evaluation", "coco.py"): {"cv2"},  # polygon masks (_poly_to_mask)
+}
 
 
 def test_source_scan_finds_no_jax_package_import():
@@ -62,18 +79,21 @@ def test_source_scan_finds_no_jax_package_import():
 
 
 def test_source_scan_finds_no_module_level_pil_or_cv2_import():
-    """PIL is imported only inside the JPEG reader, cv2 nowhere: PNG files
-    and resizes go through `data/image_io.py`."""
-    top_level = re.compile(r"^(from|import)\s+(PIL|cv2)\b", re.M)
-    anywhere = re.compile(r"^\s*(from|import)\s+(PIL|cv2)\b", re.M)
+    """PIL and cv2 are imported only inside functions, and only where
+    CALL_TIME_IMPORTS names them: PNG files and resizes go through
+    `data/image_io.py`, JPEG files through PIL there, the demo's labels
+    through PIL and COCO polygons through cv2. matplotlib is imported
+    nowhere."""
+    top_level = re.compile(r"^(from|import)\s+(PIL|cv2|matplotlib)\b", re.M)
+    anywhere = re.compile(r"^\s*(from|import)\s+(PIL|cv2|matplotlib)\b", re.M)
     found = []
     for path in _sources():
         with open(path) as f:
             src = f.read()
         rel = os.path.relpath(path, REPO)
         found += [f"{rel}: {m.group(0).strip()}" for m in top_level.finditer(src)]
-        if rel != os.path.join("uni_encoder_tpu_torch", "data", "image_io.py"):
-            found += [f"{rel}: {m.group(0).strip()}" for m in anywhere.finditer(src)]
+        found += [f"{rel}: {m.group(0).strip()}" for m in anywhere.finditer(src)
+                  if m.group(2) not in CALL_TIME_IMPORTS.get(rel, ())]
     assert not found, found
 
 
@@ -136,3 +156,20 @@ def test_train_mappers_run_without_pil_or_cv2():
     proc = subprocess.run([sys.executable, "-c", _MAPPERS], cwd=REPO, env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_walk_covers_the_demo_and_the_ade20k_coco_modules():
+    """The import check walks the demo, the ADE20K / COCO registrations,
+    the prep helpers and the COCO evaluator; the source scans read the demo
+    and conversion entry points."""
+    import pkgutil
+
+    import uni_encoder_tpu_torch as port
+
+    names = {m.name for m in pkgutil.walk_packages(port.__path__, "uni_encoder_tpu_torch.")}
+    for mod in ("demo.predictor", "demo.visualizer", "data.prep", "data.datasets.ade20k", "data.datasets.coco",
+                "evaluation.coco"):
+        assert f"uni_encoder_tpu_torch.{mod}" in names, mod
+    sources = {os.path.relpath(p, REPO) for p in _sources()}
+    assert {"demo_torch.py", os.path.join("tools", "convert_checkpoint_torch.py")} <= sources
+    assert set(CALL_TIME_IMPORTS) <= sources

@@ -11,7 +11,8 @@ filter-type-0 files of the same kinds.
 
 `read_image` is `data/mappers.py::read_image`: RGB uint8, with PIL's
 `convert("RGB")` of each kind (palette entries looked up in PLTE, alpha
-dropped). JPEG files still go through PIL, imported when one is read.
+dropped). JPEG files still go through PIL, imported when one is read or
+written (`write_jpeg`; `write_image` picks PNG or JPEG by the extension).
 
 The resizes reproduce PIL's on uint8 (H, W) or (H, W, C) arrays:
 `resize_nearest` (`Image.NEAREST`), `resize_bilinear` (`Image.BILINEAR`)
@@ -121,6 +122,19 @@ def write_png(path: str, arr: np.ndarray) -> None:
         f.write(chunk(b"IEND", b""))
 
 
+def write_jpeg(path: str, arr: np.ndarray, quality: int = 75) -> None:
+    """Write an (H, W, 3) uint8 RGB image as a JPEG through PIL (imported
+    here; 75 is PIL's default quality)."""
+    from PIL import Image
+
+    Image.fromarray(np.ascontiguousarray(arr, np.uint8)).save(path, quality=quality)
+
+
+def write_image(path: str, arr: np.ndarray) -> None:
+    """`write_jpeg` for a .jpg / .jpeg path, else `write_png`."""
+    (write_jpeg if path.lower().endswith((".jpg", ".jpeg")) else write_png)(path, arr)
+
+
 def _to_rgb(arr: np.ndarray, palette: Optional[np.ndarray]) -> np.ndarray:
     """PIL's `convert("RGB")` of each kind `decode_png` gives."""
     if arr.dtype == np.uint16:  # PIL's I;16 -> RGB saturates at 255
@@ -156,7 +170,7 @@ def _read_jpeg_rgb(path: str) -> np.ndarray:
         raise ImportError(f"reading {path} needs PIL (Pillow) for JPEG decoding; the port decodes only PNG "
                           "files itself") from e
     with open(path, "rb") as f:
-        return np.asarray(Image.open(f).convert("RGB"))
+        return np.array(Image.open(f).convert("RGB"))  # a writable copy
 
 
 # ------------------------------------------------------------------- resizes
