@@ -161,6 +161,33 @@ def model_pair(seed: int, backbone: str = "swin"):
     return model, JUniEncoder(make_cfg(JC, backbone)), jax_variables(state, backbone), state
 
 
+def scaled_yaml(path):
+    """The scaled profile (make_cfg, Swin) as a config file for the port's
+    command lines; returns its path as a string."""
+    path.write_text(f"""
+model:
+  backbone:
+    name: swin
+    swin:
+      embed_dim: {EMBED}
+      depths: {list(DEPTHS)}
+      num_heads: {list(HEADS)}
+  sem_seg_head:
+    num_classes: {K}
+    convs_dim: {CONV_DIM}
+    mask_dim: {CONV_DIM}
+    transformer_enc_layers: {ENC_LAYERS}
+  one_former:
+    num_object_queries: {NQ}
+    dec_layers: {DEC_LAYERS}
+    class_dec_layers: 2
+    dim_feedforward: {DFF}
+    hidden_dim: {CONV_DIM}
+    nheads: {NHEADS}
+""")
+    return str(path)
+
+
 def t(x):
     return torch.from_numpy(np.ascontiguousarray(x))
 

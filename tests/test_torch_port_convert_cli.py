@@ -50,32 +50,6 @@ def _load_tool(name):
     return mod
 
 
-def _scaled_yaml(path):
-    """The scaled profile (common.make_cfg) as a config file for the port tool."""
-    path.write_text(f"""
-model:
-  backbone:
-    name: swin
-    swin:
-      embed_dim: {common.EMBED}
-      depths: {list(common.DEPTHS)}
-      num_heads: {list(common.HEADS)}
-  sem_seg_head:
-    num_classes: {common.K}
-    convs_dim: {common.CONV_DIM}
-    mask_dim: {common.CONV_DIM}
-    transformer_enc_layers: {common.ENC_LAYERS}
-  one_former:
-    num_object_queries: {common.NQ}
-    dec_layers: {common.DEC_LAYERS}
-    class_dec_layers: 2
-    dim_feedforward: {common.DFF}
-    hidden_dim: {common.CONV_DIM}
-    nheads: {common.NHEADS}
-""")
-    return str(path)
-
-
 @pytest.fixture(scope="module")
 def converted(tmp_path_factory):
     """Both tools on the same inputs: {"port": state, "jax": state,
@@ -129,8 +103,8 @@ def converted(tmp_path_factory):
     pout = str(d / "port")
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
-        path = port.main([*inputs, "-o", pout, "--duplicate-conv", DUPLICATED, "--config", _scaled_yaml(d / "s.yaml"),
-                          "--device", "cpu"])
+        path = port.main([*inputs, "-o", pout, "--duplicate-conv", DUPLICATED,
+                          "--config", common.scaled_yaml(d / "s.yaml"), "--device", "cpu"])
     return {"port": ckpt.load_checkpoint(pout)["model"], "path": path, "dir": pout, "config": str(d / "s.yaml"),
             "jax": state_dict_from_jax(variables["params"], variables["batch_stats"]), "variables": variables,
             "expected": expected, "printed": (printed.getvalue(), jprinted.getvalue())}
@@ -199,7 +173,7 @@ def test_convert_cli_raises_on_missing_key_or_shape_mismatch(fault, tmp_path):
     torch.save({"model": {k: torch.from_numpy(v) for k, v in state.items()}}, str(src))
     with pytest.raises(KeyError if fault == "missing_key" else ValueError,
                        match="backbone.patch_embed.proj.weight" if fault == "missing_key" else "class_embed"):
-        tool.main([str(src), "-o", str(tmp_path / "out"), "--config", _scaled_yaml(tmp_path / "s.yaml"),
+        tool.main([str(src), "-o", str(tmp_path / "out"), "--config", common.scaled_yaml(tmp_path / "s.yaml"),
                    "--device", "cpu"])
     assert not os.path.exists(tmp_path / "out")
 

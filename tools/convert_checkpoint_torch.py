@@ -4,11 +4,19 @@ of `tools/convert_checkpoint.py`).
 Capability spec: reference tools/convert-pretrained-model-to-d2.py,
 convert-torchvision-to-d2.py, single2double_inputs.py,
 merge_two_pretrained_models.py, folded into one tool: merges d2 `.pkl` /
-torch `.pth` state dicts (later files win), optionally duplicates a conv's
+torch `.pth` state dicts and `.npz` files of the JAX trainer's checkpoints
+(later files win), optionally duplicates a conv's
 input channels (3 -> 6), and writes a port checkpoint directory
 (`engine/checkpoint.py::save_checkpoint`: `step_0.pt` and its
 `last_checkpoint` pointer) that `evaluate_torch.py`, `demo_torch.py` and
 `evaluate_torch.build_model` read.
+
+A `.npz` is what `tools/orbax_to_numpy.py` writes from an orbax checkpoint
+of `train.py` (run that where JAX is installed); it goes through
+`engine/convert.py::state_dict_from_jax`. When one holds the training
+state's text encoder (`text_params`), the model is built as for training
+(`is_train`), so that the port checkpoint keeps it; the entry points that
+evaluate leave those keys unused.
 
 The model the state is loaded into is the one `--config` describes, or
 else `--backbone`'s shipped config (swin: configs/cityscapes_swin_unified.yaml,
@@ -26,12 +34,13 @@ unless `--device cpu` is given; without a GPU and without that flag it
 raises.
 
 Usage:
-  python tools/convert_checkpoint_torch.py model.pkl [pose.pkl ...] -o out_ckpt/ \
+  python tools/convert_checkpoint_torch.py model.pkl|model.npz [pose.pkl ...] -o out_ckpt/ \
       [--duplicate-conv backbone.patch_embed.proj.weight] [--backbone swin] \
       [--config cfg.yaml] [--device cpu]
 """
 
 import argparse
+import dataclasses
 import os
 import sys
 from typing import List, Optional
@@ -51,7 +60,8 @@ def main(argv: Optional[List[str]] = None) -> str:
     """Convert as the command line `argv` asks; returns the written
     checkpoint file's path."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("inputs", nargs="+", help=".pkl/.pth state dicts (later ones win on conflicts)")
+    ap.add_argument("inputs", nargs="+", help=".pkl/.pth state dicts or tools/orbax_to_numpy.py .npz files "
+                                              "(later ones win on conflicts)")
     ap.add_argument("-o", "--output", required=True, help="port checkpoint directory")
     ap.add_argument("--backbone", default="swin", choices=sorted(BACKBONE_CONFIGS))
     ap.add_argument("--duplicate-conv", default=None,
@@ -66,12 +76,15 @@ def main(argv: Optional[List[str]] = None) -> str:
     from uni_encoder_tpu_torch.engine import checkpoint as ckpt
 
     device = resolve_device(args.device)
-    states = [ckpt.load_reference_state(p) for p in args.inputs]
+    states = [ckpt.load_jax_numpy_state(p) if p.endswith(".npz") else ckpt.load_reference_state(p)
+              for p in args.inputs]
     state = ckpt.merge_states(*states)
     if args.duplicate_conv:
         state = ckpt.duplicate_input_conv(state, args.duplicate_conv)
 
     cfg = load_config(args.config or os.path.join(REPO, BACKBONE_CONFIGS[args.backbone]))
+    if any(p.endswith(".npz") and any(k.startswith("text_encoder.") for k in st) for p, st in zip(args.inputs, states)):  # the JAX trainer's text encoder: keep it, as a training model holds it
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, is_train=True))
     model = evaluate_torch.build_structure(cfg, device)
     report = ckpt.load_into(model, state)
     if report.unused:

@@ -22,8 +22,14 @@ The port's own checkpoints: `save_checkpoint(dir, model, optimizer_state,
 step)` writes `dir/step_<step>.pt` with `torch.save` to a temporary file,
 fsyncs and renames it, and only then publishes it in `dir/last_checkpoint`
 (written the same way), so a crash never leaves the pointer at a partial
-file. `load_checkpoint(dir)` reads the file the pointer names. The JAX
-package's orbax directories are not read.
+file. `load_checkpoint(dir)` reads the file the pointer names.
+
+The JAX package's orbax directories (what `train.py` saves) are not read
+here: the port has no orbax. `tools/orbax_to_numpy.py`, run where JAX is
+installed, writes one as an `.npz` keyed `<collection>/<flax path>`;
+`load_jax_numpy_state` reads that file as a d2-named state dict through
+`engine/convert.py::state_dict_from_jax`, and
+`tools/convert_checkpoint_torch.py` turns it into a port checkpoint.
 """
 
 from __future__ import annotations
@@ -96,6 +102,26 @@ def duplicate_input_conv(state: Dict[str, np.ndarray], key: str) -> Dict[str, np
     return out
 
 
+def load_jax_numpy_state(path: str) -> Dict[str, np.ndarray]:
+    """The `.npz` that tools/orbax_to_numpy.py writes (the JAX trainer's
+    `params`, `batch_stats` and `text_params`, keyed `<collection>/<flax
+    path>`) as a d2-named {name: np.ndarray}; raises on a collection it does
+    not know or a leaf no rule places."""
+    from .convert import state_dict_from_jax
+
+    trees: Dict[str, Dict] = {"params": {}, "batch_stats": {}, "text_params": {}}
+    with np.load(path) as arrays:
+        for key in arrays.files:
+            collection, *names = key.split("/")
+            if collection not in trees or not names:
+                raise KeyError(f"{path}: {key!r} is not <collection>/<flax path> of {sorted(trees)}")
+            node = trees[collection]
+            for name in names[:-1]:
+                node = node.setdefault(name, {})
+            node[names[-1]] = arrays[key]
+    return {k: v.numpy() for k, v in state_dict_from_jax(**trees).items()}
+
+
 # --------------------------------------------------------------- loading
 @dataclasses.dataclass
 class LoadReport:
@@ -154,11 +180,20 @@ def save_checkpoint(path: str, model: nn.Module, optimizer_state: Optional[Mappi
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
     """{"model": state dict, "optimizer": ..., "step": int} of the checkpoint
-    `path/last_checkpoint` names, on the CPU."""
+    `path/last_checkpoint` names, on the CPU. Raises FileNotFoundError,
+    naming the two commands that convert one, on a directory without that
+    pointer or whose pointer names a directory (an orbax step of the JAX
+    package's train.py)."""
     pointer = os.path.join(path, POINTER)
-    if not os.path.isfile(pointer):
-        raise FileNotFoundError(f"{pointer} not found: {path} is not a port checkpoint directory "
-                                "(orbax checkpoints of the JAX package are not read)")
-    with open(pointer) as f:
-        name = f.read().strip()
+    name = None
+    if os.path.isfile(pointer):
+        with open(pointer) as f:
+            name = f.read().strip()
+    if name is None or os.path.isdir(os.path.join(path, name)):
+        found = f"{pointer} not found" if name is None else f"{pointer} names the directory {name} (orbax)"
+        raise FileNotFoundError(
+            f"{found}: {path} is not a port checkpoint directory. For a checkpoint of the JAX package's "
+            f"train.py, run `python tools/orbax_to_numpy.py {path} -o model.npz` where JAX is installed, then "
+            "`python tools/convert_checkpoint_torch.py model.npz -o PORT_CKPT_DIR [--config CFG]` and load "
+            "PORT_CKPT_DIR")
     return torch.load(os.path.join(path, name), map_location="cpu", weights_only=True)

@@ -24,6 +24,44 @@ this module's `_text_encoder` records the table:
   prompt_ctx                              -> prompt_ctx.weight
   logit_scale                             -> logit_scale
 
+The JAX converter has no rules either for the decoders no shipped config
+selects, nor for the modules no config selects; this module's tables place
+them (flax scope -> the port's keys; `{P}` is `sem_seg_head.pixel_decoder.`
+or `sem_seg_head.depth_decoder.`, the flax scope `pixel_decoder` or
+`depth_decoder`):
+
+  FPN family (`_fpn_trunk`, d2's BasePixelDecoder names):
+    trunk/layer_{k}_conv, layer_{k}_gn      -> {P}layer_{k}, {P}layer_{k}.norm
+    trunk/adapter_{k}_conv, adapter_{k}_gn  -> {P}adapter_{k}, {P}adapter_{k}.norm
+    trunk/input_proj                        -> {P}input_proj
+    trunk/encoder_layer_{l}/{self_attn, linear1, linear2, norm1, norm2}
+                                            -> {P}transformer.encoder.layers.{l}.{same}
+    mask_features                           -> {P}mask_features
+  DepthMSDeformAttnPixelDecoder: the deformable trunk's table (`_msdeform_trunk`)
+  disparity heads (`_disp_heads`, flax names):
+    low_disp_{i}_{conv0, gn0, conv1, gn1, out} -> {P}low_disp_{i}.{same}
+  DCMNet (`_dcmnet`, flax names; a ConvModule's `conv` and `bn`):
+    {psp_{i}, bottleneck, lateral_{i}, fpn_{i}, fpn_bottleneck_{s}}/{conv, bn}
+                                            -> {P}{same}.{conv, bn}
+    last_layer_{s}                          -> {P}last_layer_{s}
+  MonodepthDecoder (`_monodepth`): upconv_{i}_{j}, dispconv_{s} -> {P}{same}
+  MotionDecoderV1 at `motion_decoder` / `motion_mask` (`_motion_decoder_v1`):
+    res_trans_conv, conv{ii}_{0,1}, redu{ii} -> {motion_decoder, motion_mask}.{same}
+  Monodepth2PoseModel at `pose_decoder` (`_monodepth2_pose`):
+    encoder/*                               -> pose_decoder.encoder.* (the ResNet's table)
+    decoder/{squeeze, pose_0, pose_1, pose_2} -> pose_decoder.decoder.{same}
+  ContextDecoder at `context_decoder` (`_context_decoder`, the reference's names):
+    memory_norm1, memory_proj, memory_norm2 -> context_decoder.memory_proj.{0, 1, 2}
+    text_norm, text_proj                    -> context_decoder.text_proj.{0, 1}
+    layer{i}_norm{k}                        -> context_decoder.decoder.{i}.norm{k}
+    layer{i}_{self_attn, cross_attn}/{q_proj, k_proj, v_proj, proj}
+                                            -> context_decoder.decoder.{i}.{same}.{same}
+    layer{i}_mlp_fc1, layer{i}_mlp_fc2      -> context_decoder.decoder.{i}.mlp.{0, 3}
+    out_norm, out_proj                      -> context_decoder.out_proj.{0, 1}
+
+Each decoder is told apart by its flax names (`_decoder`), a MotionDecoderV1
+by the absence of `layer0`, the pose model by its `encoder`.
+
 Layouts:
 
   * Dense kernel (in, out)      -> `.weight` = kernel.T
@@ -114,15 +152,14 @@ def _swin(t: _Table, depths) -> None:
         t.norm(f"{b}norm{i}", ("backbone", f"out_norm{i}"))
 
 
-def _resnet(t: _Table, depths, bottleneck: bool) -> None:
+def _resnet(t: _Table, depths, bottleneck: bool, b: str = "backbone.", top: Path = ("backbone",)) -> None:
     """Every block gets shortcut records; only the blocks that project hold
     one, and a record whose flax leaf is absent places nothing."""
-    b = "backbone."
-    t.conv(b + "stem.conv1", ("backbone", "stem_conv1"), bias=False)
-    t.bn(b + "stem.conv1.norm", ("backbone", "stem_bn1"))
+    t.conv(b + "stem.conv1", top + ("stem_conv1",), bias=False)
+    t.bn(b + "stem.conv1.norm", top + ("stem_bn1",))
     for i, depth in enumerate(depths):
         for j in range(depth):
-            src, dst = f"{b}res{i + 2}.{j}.", ("backbone", f"res{i + 2}_block{j}")
+            src, dst = f"{b}res{i + 2}.{j}.", top + (f"res{i + 2}_block{j}",)
             for k in range(1, (3 if bottleneck else 2) + 1):
                 t.conv(src + f"conv{k}", dst + (f"conv{k}",), bias=False)
                 t.bn(src + f"conv{k}.norm", dst + (f"bn{k}",))
@@ -189,9 +226,7 @@ def _backbone(t: _Table, flat: Dict[Path, np.ndarray]) -> None:
         _swin(t, depths(r"layers_{i}_blocks_(\d+)", _count(names, r"out_norm(\d+)")))
 
 
-def _msdeform_pixel_decoder(t: _Table, layers: int, levels: int) -> None:
-    prefix, dst0 = "sem_seg_head.pixel_decoder.", "pixel_decoder"
-    trunk = (dst0, "trunk")
+def _msdeform_trunk(t: _Table, prefix: str, trunk: Path, layers: int, levels: int) -> None:
     for i in range(levels):
         t.conv(prefix + f"input_proj.{i}.0", trunk + (f"input_proj_{i}_conv",))
         t.norm(prefix + f"input_proj.{i}.1", trunk + (f"input_proj_{i}_gn",))
@@ -209,7 +244,84 @@ def _msdeform_pixel_decoder(t: _Table, layers: int, levels: int) -> None:
     t.norm(prefix + "adapter_1.norm", trunk + ("adapter_1_gn",))
     t.conv(prefix + "layer_1", trunk + ("layer_1_conv",), bias=False)
     t.norm(prefix + "layer_1.norm", trunk + ("layer_1_gn",))
-    t.conv(prefix + "mask_features", (dst0, "mask_features"))
+
+
+def _fpn_trunk(t: _Table, prefix: str, trunk: Path, levels: int, layers: int) -> None:
+    """d2's BasePixelDecoder names: `layer_{n}` for the lowest-res level,
+    `adapter_{k}` / `layer_{k}` below it; the transformer variant's
+    `input_proj` and post-norm `transformer.encoder.layers.{l}`."""
+    for k in range(1, levels + 1):
+        if k < levels:
+            t.conv(prefix + f"adapter_{k}", trunk + (f"adapter_{k}_conv",), bias=False)
+            t.norm(prefix + f"adapter_{k}.norm", trunk + (f"adapter_{k}_gn",))
+        t.conv(prefix + f"layer_{k}", trunk + (f"layer_{k}_conv",), bias=False)
+        t.norm(prefix + f"layer_{k}.norm", trunk + (f"layer_{k}_gn",))
+    t.conv(prefix + "input_proj", trunk + ("input_proj",))
+    for l in range(layers):
+        src, dst = prefix + f"transformer.encoder.layers.{l}.", trunk + (f"encoder_layer_{l}",)
+        t.mha(src + "self_attn", dst + ("self_attn",))
+        t.linear(src + "linear1", dst + ("linear1",))
+        t.linear(src + "linear2", dst + ("linear2",))
+        t.norm(src + "norm1", dst + ("norm1",))
+        t.norm(src + "norm2", dst + ("norm2",))
+
+
+def _disp_heads(t: _Table, prefix: str, top: Path, n: int) -> None:
+    for i in range(n):
+        src = f"{prefix}low_disp_{i}."
+        for k in range(2):
+            t.conv(src + f"conv{k}", top + (f"low_disp_{i}_conv{k}",))
+            t.norm(src + f"gn{k}", top + (f"low_disp_{i}_gn{k}",))
+        t.conv(src + "out", top + (f"low_disp_{i}_out",))
+
+
+def _conv_module(t: _Table, src: str, dst: Path) -> None:
+    t.conv(src + ".conv", dst + ("conv",), bias=False)
+    t.bn(src + ".bn", dst + ("bn",))
+
+
+def _dcmnet(t: _Table, prefix: str, top: Path, pools: int, levels: int) -> None:
+    for i in range(pools):
+        _conv_module(t, prefix + f"psp_{i}", top + (f"psp_{i}",))
+    _conv_module(t, prefix + "bottleneck", top + ("bottleneck",))
+    for i in range(levels - 1):
+        _conv_module(t, prefix + f"lateral_{i}", top + (f"lateral_{i}",))
+        _conv_module(t, prefix + f"fpn_{i}", top + (f"fpn_{i}",))
+    for scale in range(4):
+        _conv_module(t, prefix + f"fpn_bottleneck_{scale}", top + (f"fpn_bottleneck_{scale}",))
+        t.conv(prefix + f"last_layer_{scale}", top + (f"last_layer_{scale}",))
+
+
+def _monodepth(t: _Table, prefix: str, top: Path) -> None:
+    for i in range(5):
+        for j in range(2):
+            t.conv(prefix + f"upconv_{i}_{j}", top + (f"upconv_{i}_{j}",))
+        t.conv(prefix + f"dispconv_{i}", top + (f"dispconv_{i}",))
+
+
+def _decoder(t: _Table, flat: Dict[Path, np.ndarray], top: str, prefix: str) -> None:
+    """The table of the pixel or depth decoder at flax scope `top`, told
+    apart by its flax names: TransDSSL's `layer1_rn`, DCMNet's `psp_*`,
+    MonodepthDecoder's `upconv_*`; a `trunk` with `input_proj_0_conv` is the
+    deformable one, any other the FPN's; `mask_features` or `low_disp_*`
+    heads on either."""
+    names = {p[1] for p in flat if p[0] == top}
+    trunk_names = {p[2] for p in flat if p[:2] == (top, "trunk")}
+    root, trunk = (top,), (top, "trunk")
+    if "layer1_rn" in names:
+        _transdssl(t)
+    elif any(n.startswith("psp_") for n in names):
+        _dcmnet(t, prefix, root, _count(names, r"psp_(\d+)"), _count(names, r"lateral_(\d+)") + 1)
+    elif any(n.startswith("upconv_") for n in names):
+        _monodepth(t, prefix, root)
+    elif "input_proj_0_conv" in trunk_names:
+        _msdeform_trunk(t, prefix, trunk, layers=_count(trunk_names, r"encoder_layer_(\d+)"),
+                        levels=_count(trunk_names, r"input_proj_(\d+)_conv"))
+    else:
+        _fpn_trunk(t, prefix, trunk, levels=_count(trunk_names, r"layer_(\d+)_conv") - 1,
+                   layers=_count(trunk_names, r"encoder_layer_(\d+)"))
+    t.conv(prefix + "mask_features", root + ("mask_features",))
+    _disp_heads(t, prefix, root, _count(names, r"low_disp_(\d+)_out"))
 
 
 def _query_decoder(t: _Table, dec_layers: int, class_dec_layers: int, mask_embed_layers: int) -> None:
@@ -295,6 +407,44 @@ def _motion_decoder(t: _Table, which: str) -> None:
     t.conv(which + ".res_trans_conv", (which, "res_trans_conv"))
 
 
+def _motion_decoder_v1(t: _Table, which: str, stages: int) -> None:
+    t.conv(which + ".res_trans_conv", (which, "res_trans_conv"))
+    for ii in range(stages):
+        t.conv(f"{which}.conv{ii}_0", (which, f"conv{ii}_0"))
+        t.conv(f"{which}.conv{ii}_1", (which, f"conv{ii}_1"))
+        t.conv(f"{which}.redu{ii}", (which, f"redu{ii}"))
+
+
+def _monodepth2_pose(t: _Table, flat: Dict[Path, np.ndarray]) -> None:
+    names = {p[2] for p in flat if p[:2] == ("pose_decoder", "encoder")}
+    bottleneck = any(p[:2] == ("pose_decoder", "encoder") and p[3:4] == ("conv3",) for p in flat)
+    depths = [_count(names, rf"res{i}_block(\d+)") for i in range(2, 6)]
+    _resnet(t, depths, bottleneck, "pose_decoder.encoder.", ("pose_decoder", "encoder"))
+    for name in ("squeeze", "pose_0", "pose_1", "pose_2"):
+        t.conv(f"pose_decoder.decoder.{name}", ("pose_decoder", "decoder", name))
+
+
+def _context_decoder(t: _Table, layers: int) -> None:
+    p, d = "context_decoder.", ("context_decoder",)
+    t.norm(p + "memory_proj.0", d + ("memory_norm1",))
+    t.linear(p + "memory_proj.1", d + ("memory_proj",))
+    t.norm(p + "memory_proj.2", d + ("memory_norm2",))
+    t.norm(p + "text_proj.0", d + ("text_norm",))
+    t.linear(p + "text_proj.1", d + ("text_proj",))
+    for i in range(layers):
+        src, dst = f"{p}decoder.{i}.", d
+        for k in (1, 2, 3):
+            t.norm(src + f"norm{k}", dst + (f"layer{i}_norm{k}",))
+        for attn in ("self_attn", "cross_attn"):
+            for proj in ("q_proj", "k_proj", "v_proj"):
+                t.linear(src + f"{attn}.{proj}", dst + (f"layer{i}_{attn}", proj), bias=False)
+            t.linear(src + f"{attn}.proj", dst + (f"layer{i}_{attn}", "proj"))
+        t.linear(src + "mlp.0", dst + (f"layer{i}_mlp_fc1",))
+        t.linear(src + "mlp.3", dst + (f"layer{i}_mlp_fc2",))
+    t.norm(p + "out_proj.0", d + ("out_norm",))
+    t.linear(p + "out_proj.1", d + ("out_proj",))
+
+
 def _text_encoder(t: _Table, layers: int, proj_layers: int) -> None:
     c, d = "text_params", ("text_encoder",)
     t.raw("text_encoder.token_embedding.weight", d + ("token_embedding", "embedding"), collection=c)
@@ -332,21 +482,26 @@ def _count(names, pattern: str) -> int:
 def _tables_for(flat: Dict[Path, np.ndarray], text: Optional[Dict[Path, np.ndarray]] = None) -> _Table:
     """The rule table sized from the depths and layer counts in the trees."""
     names = {p[:2] for p in flat}
-    trunk = [p[2] for p in flat if p[:2] == ("pixel_decoder", "trunk")]
     predictor = [n for top, n in names if top == "predictor"]
     mask_embed = [p[2] for p in flat if p[:2] == ("predictor", "mask_embed")]
     t = _Table()
     _backbone(t, flat)
-    _msdeform_pixel_decoder(t, layers=_count(trunk, r"encoder_layer_(\d+)"),
-                            levels=_count(trunk, r"input_proj_(\d+)_conv"))
+    _decoder(t, flat, "pixel_decoder", "sem_seg_head.pixel_decoder.")
+    _decoder(t, flat, "depth_decoder", "sem_seg_head.depth_decoder.")
     _query_decoder(t, dec_layers=_count(predictor, r"cross_attn_(\d+)"),
                    class_dec_layers=_count(predictor, r"class_dec_(\d+)"),
                    mask_embed_layers=_count(mask_embed, r"layers_(\d+)"))
     _task_mlp(t)
-    _transdssl(t)
-    _pose_decoder(t)
-    _motion_decoder(t, "motion_decoder")
-    _motion_decoder(t, "motion_mask")
+    if ("pose_decoder", "encoder") in names:
+        _monodepth2_pose(t, flat)
+    else:
+        _pose_decoder(t)
+    for which in ("motion_decoder", "motion_mask"):
+        if (which, "layer0") in names:
+            _motion_decoder(t, which)
+        else:
+            _motion_decoder_v1(t, which, _count([n for top, n in names if top == which], r"redu(\d+)"))
+    _context_decoder(t, _count([n for top, n in names if top == "context_decoder"], r"layer(\d+)_norm1"))
     if text:
         _text_encoder(t, layers=_count([p[1] for p in text if p[0] == "text_encoder"], r"resblock_(\d+)"),
                       proj_layers=_count([p[2] for p in text if p[:2] == ("text_projector", "proj")],

@@ -128,8 +128,10 @@ class Predictor:
     @torch.inference_mode()
     def infer_sequence(self, item: Dict) -> Dict:
         """item: image and prev_image (H, W, 3) uint8. Returns disp_results
-        and motion_mask (H, W), complete_flow (H, W, 3) and cam_T_cam (4, 4),
-        fp32."""
+        (the depth decoder's scale 0: (H, W) for TransDSSL, (H/2, W/2) for
+        DCMNet, (H/4, W/4) for the DepthMSDeformAttn and
+        DepthTransformerEncoder decoders, as in the JAX package), motion_mask
+        (H, W), complete_flow (H, W, 3) and cam_T_cam (4, 4), fp32."""
         img = self._normalize(item["image"]).to(self.dtype)
         prev = self._normalize(item["prev_image"]).to(self.dtype)
         out = self.model.forward_sequence(img[None], prev[None])

@@ -21,6 +21,11 @@ the resize copies them), fp32 summation order and sigmoid ulps: per-pixel
 map mismatch < 3e-3, scores within 1e-3, boxes within 1 pixel, segment
 arrays, labels and query indices exact (tests/test_fused_postprocess.py's
 tolerances for the JAX kernel).
+
+`phase_layout=True` returns the two maps in the JAX function's 16-phase
+wire layout, (4, 4, H/4, W/4) uint8 with out[4k+jy, 4l+jx] = m[jy, jx, k,
+l]: a permute of the (H, W) maps (the kernel does not change);
+`deinterleave_phases_np` turns them back on the host.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from __future__ import annotations
 import ctypes
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from ..ops import resize_hw
@@ -156,6 +162,25 @@ def _instance_topk(probs: torch.Tensor, topk: int):
     return scores_per_image, (topk_indices % K).to(torch.int32), topk_indices // K
 
 
+def interleave_phases(m: torch.Tensor) -> torch.Tensor:
+    """(H, W) -> (4, 4, H/4, W/4): out[jy, jx, k, l] = m[4k+jy, 4l+jx]."""
+    H, W = m.shape
+    return m.reshape(H // 4, 4, W // 4, 4).permute(1, 3, 0, 2).contiguous()
+
+
+def deinterleave_phases_np(m: np.ndarray) -> np.ndarray:
+    """Host-side wire decode: (4, 4, h, w) phase layout -> (4h, 4w)."""
+    _, _, h, w = m.shape
+    return np.ascontiguousarray(m.transpose(2, 0, 3, 1).reshape(4 * h, 4 * w))
+
+
+def _wire_layout(out: Dict[str, torch.Tensor], phase_layout: bool) -> Dict[str, torch.Tensor]:
+    if phase_layout:
+        for k in ("sem_seg_argmax", "panoptic_seg"):
+            out[k] = interleave_phases(out[k])
+    return out
+
+
 def fused_multitask_inference(
     mask_cls: torch.Tensor,  # (Q, K+1) logits
     mask_pred: torch.Tensor,  # (Q, h, w) mask logits (stride 4)
@@ -163,12 +188,14 @@ def fused_multitask_inference(
     object_mask_threshold: float = 0.8,
     overlap_threshold: float = 0.8,
     topk: int = 150,
+    phase_layout: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Semantic/panoptic/instance outputs at 4x the mask resolution: the CUDA
-    kernel for CUDA tensors, the plain version for CPU tensors."""
+    kernel for CUDA tensors, the plain version for CPU tensors; the two
+    maps in the phase layout with `phase_layout`."""
     if not mask_pred.is_cuda:
         return fused_multitask_inference_plain(
-            mask_cls, mask_pred, thing_mask, object_mask_threshold, overlap_threshold, topk
+            mask_cls, mask_pred, thing_mask, object_mask_threshold, overlap_threshold, topk, phase_layout
         )
     probs, labels_all, keep, args = fused_postprocess_inputs(mask_cls, mask_pred, object_mask_threshold)
     r = fused_postprocess_cuda(*args)
@@ -186,7 +213,7 @@ def fused_multitask_inference(
     mask_scores = r["sig_sum"][q_indices] / (strict[q_indices].float() + 1e-6)
     box = torch.stack([r["xmin"], r["ymin"], r["xmax"], r["ymax"]], dim=-1).float()
     boxes = torch.where((strict > 0)[:, None], box, torch.zeros_like(box))[q_indices]
-    return {
+    return _wire_layout({
         "sem_seg_argmax": r["sem"],
         "panoptic_seg": panoptic_seg,
         "seg_id": seg_id,
@@ -197,7 +224,7 @@ def fused_multitask_inference(
         "labels": labels_per_image,
         "boxes": boxes,
         "query_indices": q_indices.to(torch.int32),
-    }
+    }, phase_layout)
 
 
 def fused_multitask_inference_plain(
@@ -207,6 +234,7 @@ def fused_multitask_inference_plain(
     object_mask_threshold: float = 0.8,
     overlap_threshold: float = 0.8,
     topk: int = 150,
+    phase_layout: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Plain version of the kernel path: the unfused pipeline over the
     materialised (Q, H, W) bf16 upsample cast to fp32, with the same output
@@ -217,7 +245,7 @@ def fused_multitask_inference_plain(
     sem = semantic_inference(mask_cls, up).argmax(dim=0)
     pan = panoptic_inference(mask_cls, up, thing_mask, object_mask_threshold, overlap_threshold)
     inst = instance_inference(mask_cls, up, topk)
-    return {
+    return _wire_layout({
         "sem_seg_argmax": sem.to(torch.uint8),
         "panoptic_seg": pan["panoptic_seg"].to(torch.uint8),
         "seg_id": pan["seg_id"],
@@ -228,4 +256,4 @@ def fused_multitask_inference_plain(
         "labels": inst["labels"],
         "boxes": inst["boxes"],
         "query_indices": inst["query_indices"],
-    }
+    }, phase_layout)

@@ -69,9 +69,9 @@ class BottleneckBlock(nn.Module):
 
 
 class BasicStem(nn.Module):
-    def __init__(self, out_channels: int):
+    def __init__(self, out_channels: int, in_channels: int = 3):
         super().__init__()
-        self.conv1 = ConvBN(3, out_channels, 7, 2, 3)
+        self.conv1 = ConvBN(in_channels, out_channels, 7, 2, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = relu(self.conv1(x))
@@ -81,17 +81,21 @@ class BasicStem(nn.Module):
 
 class ResNet(nn.Module):
     """Returns {"stem", "res2".."res5"} (those in `out_features`)
-    channels-last feature maps."""
+    channels-last feature maps, at `out_strides`; `in_channels` is 6 for the
+    monodepth2 pose model's stacked frame pair."""
+
+    # the stem comes after the max-pool, as in the JAX copy: stride 4, not 2
+    out_strides = {"stem": 4, "res2": 4, "res3": 8, "res4": 16, "res5": 32}
 
     def __init__(self, depth: int = 18, stem_out_channels: int = 64, res2_out_channels: int = 64,
-                 out_features: Sequence[str] = ("stem", "res2", "res3", "res4", "res5")):
+                 out_features: Sequence[str] = ("stem", "res2", "res3", "res4", "res5"), in_channels: int = 3):
         super().__init__()
         if depth not in BLOCKS_PER_STAGE:
             raise ValueError(f"ResNet depth must be one of {sorted(BLOCKS_PER_STAGE)}, got {depth}")
         self.stem_out_channels = stem_out_channels
         self.res2_out_channels = res2_out_channels
         self.out_features = tuple(out_features)
-        self.stem = BasicStem(stem_out_channels)
+        self.stem = BasicStem(stem_out_channels, in_channels)
         cin = stem_out_channels
         for i, n_blocks in enumerate(BLOCKS_PER_STAGE[depth]):
             cout = res2_out_channels * 2 ** i

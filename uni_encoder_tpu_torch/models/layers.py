@@ -9,7 +9,8 @@ reference checkpoint loads with `load_state_dict(strict=True)`:
   * `FrozenBatchNorm`: `weight`, `bias`, `running_mean`, `running_var`.
 
 Convolutions of the sequence path take and give NHWC tensors
-(`Conv2dNHWC`), as the JAX package's do.
+(`Conv2dNHWC`, `reflect_conv`), as the JAX package's do; `GroupNorm32`
+normalizes an NHWC tensor.
 """
 
 from __future__ import annotations
@@ -122,6 +123,25 @@ class Conv2dNHWC(nn.Conv2d):
     so cuDNN runs a channels-last convolution with no copy, and its
     channels-last output permutes back to a contiguous NHWC tensor.
     """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def reflect_conv(in_channels: int, out_channels: int, kernel_size: int = 3, bias: bool = True) -> Conv2dNHWC:
+    """The JAX package's `Conv(padding=kernel_size // 2, padding_mode="reflect")`
+    over NHWC: the input reflect-padded (the edge row not repeated, as
+    `jnp.pad(mode="reflect")`), then a valid convolution."""
+    return Conv2dNHWC(in_channels, out_channels, kernel_size, padding=kernel_size // 2, padding_mode="reflect",
+                      bias=bias)
+
+
+class GroupNorm32(nn.GroupNorm):
+    """GroupNorm over the last axis of an NHWC tensor, 32 groups, eps 1e-5,
+    affine (torch's defaults; the JAX package's `GroupNorm32`)."""
+
+    def __init__(self, channels: int, num_groups: int = 32):
+        super().__init__(num_groups, channels, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)

@@ -1,5 +1,6 @@
-"""Coarse-to-fine motion decoder (port of
-`uni_encoder_tpu/models/motion_decoder.py::MotionDecoderV2`).
+"""Coarse-to-fine motion decoders (port of
+`uni_encoder_tpu/models/motion_decoder.py`: `MotionDecoderV2`, the model's,
+and `MotionDecoderV1`, the monodepth2-pose variant no config selects).
 
 Seeds a motion field from 100x the ego-motion vector through a 1x1 conv,
 then refines it scale by scale, res5 to full resolution, with conv/squeeze
@@ -10,13 +11,20 @@ BatchNorm (in `layer0`) follows the module's train/eval mode.
 The model holds two: `motion_decoder` (flow) and `motion_mask`.
 
 d2 keys: `layer0.*` (a residual stage with ELU blocks), `conv{s}.{0,1}`,
-`squeeze{s}` for s = 0..5, `res_trans_conv`. `MotionDecoderV1` (the
-`monodepth2_pose` variant) is not ported.
+`squeeze{s}` for s = 0..5, `res_trans_conv`.
+
+`MotionDecoderV1` refines over a pose-encoder pyramid {full_res_input,
+stem, res2..res5} (monodepth2's strides 1 to 32), res5 first: per stage
+the upsampled motion and the feature concatenated, a 3x3 conv (no
+activation), a 3x3 conv + ReLU, a 1x1 `redu` conv of the two side by side,
+plus the upsampled motion; outputs scaled by 0.01 (V2: 0.005). Its keys
+follow the JAX copy's flax names: `res_trans_conv`, `conv{ii}_{0,1}`,
+`redu{ii}` for stage ii = 0 (res5) .. 5 (full resolution).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import torch
 from torch import nn
@@ -81,4 +89,50 @@ class MotionDecoderV2(nn.Module):
                 outs[("motion_mask", scale)] = torch.sigmoid(0.005 * o)
             else:
                 outs[("complete_flow", scale)] = 0.005 * o
+        return outs
+
+
+class MotionDecoderV1(nn.Module):
+    """`in_channels`: the pyramid's widths {full_res_input, stem, res2..res5}.
+    Scale s of the output is stage 5 - s: scale 0 at full resolution."""
+
+    order = ("full_res_input", "stem", "res2", "res3", "res4", "res5")
+
+    def __init__(self, in_channels: Dict[str, int], out_dim: int = 3, scales: Sequence[int] = (0, 1, 2, 3),
+                 num_inp_feat: Sequence[int] = (64, 64, 128, 256, 512), num_input_images: int = 2,
+                 inp_disp: bool = True):
+        super().__init__()
+        if out_dim not in (1, 3):
+            raise ValueError(f"out_dim={out_dim}")
+        self.out_dim = out_dim
+        self.scales = tuple(scales)
+        # stage widths coarse to fine: the encoder's, reversed, then the input's
+        self.chans = tuple(reversed(tuple(num_inp_feat))) + (num_input_images * (3 + int(inp_disp)),)
+        self.res_trans_conv = Conv2dNHWC(6, out_dim, 1)
+        for ii, ch in enumerate(self.chans):
+            feat = in_channels[self.order[-1 - ii]]
+            self.add_module(f"conv{ii}_0", Conv2dNHWC(out_dim + feat, ch, 3, padding=1))
+            self.add_module(f"conv{ii}_1", Conv2dNHWC(ch, ch, 3, padding=1))
+            self.add_module(f"redu{ii}", Conv2dNHWC(2 * ch, out_dim, 1))
+
+    def forward(self, pyramid: Dict[str, torch.Tensor], ego_motion: torch.Tensor) -> Dict:
+        """pyramid: NHWC {full_res_input, stem, res2..res5}; ego_motion
+        (B, 1, 1, 6)."""
+        motion = self.res_trans_conv(100.0 * ego_motion)
+        stages = []
+        for ii in range(len(self.chans)):
+            feat = pyramid[self.order[-1 - ii]]
+            up = interpolate(motion, size=feat.shape[1:3], mode="bilinear", align_corners=False)
+            x1 = getattr(self, f"conv{ii}_0")(torch.cat([up, feat], dim=-1))
+            x2 = relu(getattr(self, f"conv{ii}_1")(x1))
+            motion = getattr(self, f"redu{ii}")(torch.cat([x1, x2], dim=-1)) + up
+            stages.append(motion)
+        outs = {}
+        for scale in self.scales:
+            m_raw = 0.01 * stages[len(self.chans) - 1 - scale]
+            if self.out_dim == 1:
+                outs[("motion_prob", scale)] = m_raw
+                outs[("motion_mask", scale)] = torch.sigmoid(m_raw)
+            else:
+                outs[("complete_flow", scale)] = m_raw
         return outs

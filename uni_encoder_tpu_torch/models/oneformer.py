@@ -1,9 +1,11 @@
 """UniEncoder meta-architecture (port of `uni_encoder_tpu/models/oneformer.py`).
 
 One shared backbone (Swin, ResNet, ConvNeXt or DiNAT, as `cfg.backbone.name`
-selects) feeds (a) the MSDeformAttn pixel decoder and the
-task-conditioned query decoder for segmentation items, and (b) the two-frame
-pose / motion / depth decoders for sequence items. The task string is
+selects) feeds (a) the pixel decoder and the task-conditioned query decoder
+for segmentation items, and (b) the two-frame pose / motion / depth decoders
+for sequence items. `build_pixel_decoder` builds the pixel and depth
+decoders `cfg.sem_seg_head.{pixel,depth}_decoder_name` select, as the JAX
+package's does. The task string is
 tokenized on the host; the model feeds the (B, 77) token ids, as floats,
 through the 2-layer task MLP, reproducing the reference's quirk of embedding
 raw token ids. A sequence item's two frames go through the backbone as one
@@ -44,7 +46,14 @@ from .backbones.resnet import ResNet
 from .backbones.swin import SwinTransformer
 from .layers import MLP, random_init_
 from .motion_decoder import MotionDecoderV2
-from .pixel_decoders.msdeformattn import MSDeformAttnPixelDecoder
+from .pixel_decoders.dcmnet import DCMNet
+from .pixel_decoders.fpn import (
+    BasePixelDecoder,
+    DepthTransformerEncoderPixelDecoder,
+    TransformerEncoderPixelDecoder,
+)
+from .pixel_decoders.monodepth2 import MonodepthDecoder
+from .pixel_decoders.msdeformattn import DepthMSDeformAttnPixelDecoder, MSDeformAttnPixelDecoder
 from .pixel_decoders.transdssl import TransDSSL
 from .pose_decoder import ResNetLikePoseDecoder
 from .text_transformer import TextProjector, TextTransformer
@@ -94,6 +103,62 @@ def build_backbone(cfg: ModelConfig) -> nn.Module:
     raise ValueError(f"unknown backbone {name!r}")
 
 
+# the names the JAX package registers, by the slot they can fill: a
+# segmentation decoder returns (mask features, ..., multi-scale maps), a
+# depth decoder {("disp", s): map}
+SEGMENTATION_DECODERS = ("MSDeformAttnPixelDecoder", "BasePixelDecoder", "TransformerEncoderPixelDecoder")
+DEPTH_DECODERS = ("TransDSSL", "DepthMSDeformAttnPixelDecoder", "DepthTransformerEncoderPixelDecoder", "DCMNet",
+                  "MonodepthDecoder")
+
+
+def build_pixel_decoder(cfg: ModelConfig, depth: bool, backbone: nn.Module) -> nn.Module:
+    """The decoder `cfg.sem_seg_head.depth_decoder_name` (`depth`) or
+    `pixel_decoder_name` names, on `backbone`'s feature widths, with the
+    arguments the JAX package's `build_pixel_decoder` gives it: the config's
+    widths to MSDeformAttnPixelDecoder, DepthMSDeformAttnPixelDecoder,
+    TransDSSL, BasePixelDecoder and TransformerEncoderPixelDecoder; the
+    others keep their defaults (the JAX function's `cls(name=...)` after its
+    call with `conv_dim` fails), so DepthTransformerEncoderPixelDecoder is
+    256 wide, DCMNet 512, whatever `convs_dim` says.
+
+    Raises ValueError for a name the JAX package does not register, or one
+    that cannot fill the slot (the JAX model would build it and fail in its
+    forward), and for MonodepthDecoder on a backbone whose `stem` feature is
+    not at stride 2 (every backbone of both packages: the JAX model fails in
+    a concatenate of its forward)."""
+    h = cfg.sem_seg_head
+    name = h.depth_decoder_name if depth else h.pixel_decoder_name
+    known = DEPTH_DECODERS if depth else SEGMENTATION_DECODERS
+    if name not in known:
+        slot = "depth_decoder_name" if depth else "pixel_decoder_name"
+        raise ValueError(f"unknown {slot} {name!r}: one of {', '.join(known)}")
+    chans = backbone.out_channels
+    if name == "MSDeformAttnPixelDecoder":
+        return MSDeformAttnPixelDecoder(chans, conv_dim=h.convs_dim, mask_dim=h.mask_dim,
+                                        transformer_layers=h.transformer_enc_layers, n_heads=cfg.one_former.nheads,
+                                        transformer_in_features=h.deformable_transformer_encoder_in_features)
+    if name == "DepthMSDeformAttnPixelDecoder":
+        return DepthMSDeformAttnPixelDecoder(chans, conv_dim=h.convs_dim, transformer_layers=h.transformer_enc_layers,
+                                             n_heads=cfg.one_former.nheads,
+                                             transformer_in_features=h.deformable_transformer_encoder_in_features)
+    if name == "TransDSSL":
+        return TransDSSL(chans, features=h.convs_dim, n_scales=cfg.num_depth_scales)
+    if name == "BasePixelDecoder":
+        return BasePixelDecoder(chans, conv_dim=h.convs_dim, mask_dim=h.mask_dim)
+    if name == "TransformerEncoderPixelDecoder":
+        return TransformerEncoderPixelDecoder(chans, conv_dim=h.convs_dim, mask_dim=h.mask_dim)
+    if name == "DepthTransformerEncoderPixelDecoder":
+        return DepthTransformerEncoderPixelDecoder(chans)
+    if name == "DCMNet":
+        return DCMNet(chans)
+    stem_stride = getattr(backbone, "out_strides", {}).get("stem") if "stem" in chans else None
+    if stem_stride != 2:
+        raise ValueError(f"MonodepthDecoder needs a 'stem' feature at stride 2 for its first skip; the "
+                         f"{cfg.backbone.name} backbone gives "
+                         f"{'none' if stem_stride is None else f'one at stride {stem_stride}'}")
+    return MonodepthDecoder(chans)
+
+
 class UniEncoder(nn.Module):
     """The model: `forward_segmentation` and `forward_sequence` (serving), and
     with `cfg.is_train` also `forward_sequence_train` and `encode_text`.
@@ -112,21 +177,10 @@ class UniEncoder(nn.Module):
         device = resolve_device(device)
         self.cfg = cfg
         h = cfg.sem_seg_head
-        if h.pixel_decoder_name != "MSDeformAttnPixelDecoder":
-            raise NotImplementedError(f"pixel decoder {h.pixel_decoder_name!r} is not ported yet")
-        if h.depth_decoder_name != "TransDSSL":
-            raise NotImplementedError(f"depth decoder {h.depth_decoder_name!r} is not ported yet")
         of = cfg.one_former
         with torch.device("meta"):
             self.backbone = build_backbone(cfg)
-            pixel_decoder = MSDeformAttnPixelDecoder(
-                in_channels=self.backbone.out_channels,
-                conv_dim=h.convs_dim,
-                mask_dim=h.mask_dim,
-                transformer_layers=h.transformer_enc_layers,
-                n_heads=of.nheads,
-                transformer_in_features=h.deformable_transformer_encoder_in_features,
-            )
+            pixel_decoder = build_pixel_decoder(cfg, False, self.backbone)
             predictor = OneFormerQueryDecoder(
                 num_classes=h.num_classes,
                 hidden_dim=of.hidden_dim,
@@ -139,8 +193,7 @@ class UniEncoder(nn.Module):
                 use_task_norm=of.use_task_norm,
                 is_train=cfg.is_train,
             )
-            depth_decoder = TransDSSL(self.backbone.out_channels, features=h.convs_dim,
-                                      n_scales=cfg.num_depth_scales)
+            depth_decoder = build_pixel_decoder(cfg, True, self.backbone)
             self.sem_seg_head = SemSegHead(pixel_decoder, predictor, depth_decoder)
             # task MLP consumes raw token ids as floats (reference quirk)
             self.task_mlp = MLP(task_seq_len, of.hidden_dim, of.hidden_dim, 2)
@@ -172,7 +225,7 @@ class UniEncoder(nn.Module):
         self.train(cfg.is_train)
 
     @property
-    def pixel_decoder(self) -> MSDeformAttnPixelDecoder:
+    def pixel_decoder(self) -> nn.Module:
         return self.sem_seg_head.pixel_decoder
 
     @property
@@ -180,7 +233,7 @@ class UniEncoder(nn.Module):
         return self.sem_seg_head.predictor
 
     @property
-    def depth_decoder(self) -> TransDSSL:
+    def depth_decoder(self) -> nn.Module:
         return self.sem_seg_head.depth_decoder
 
     def forward_segmentation(self, images: torch.Tensor, task_tokens: torch.Tensor,
@@ -202,10 +255,13 @@ class UniEncoder(nn.Module):
     def forward_sequence(self, images: torch.Tensor, prev_images: torch.Tensor) -> Dict:
         """images, prev_images: (B, H, W, 3) normalized current / previous frame.
 
-        Returns disp and motion_mask (B, H, W, 1), complete_flow (B, H, W, 3),
-        axisangle and translation (B, 1, 3), cam_T_cam (B, 4, 4), and the
-        per-scale dicts disps / complete_flows keyed ("disp", s) /
-        ("complete_flow", s)."""
+        Returns disp (B, h, w, 1), motion_mask (B, H, W, 1), complete_flow
+        (B, H, W, 3), axisangle and translation (B, 1, 3), cam_T_cam
+        (B, 4, 4), and the per-scale dicts disps / complete_flows keyed
+        ("disp", s) / ("complete_flow", s). disp is the depth decoder's
+        scale 0, whose size the decoder sets as in the JAX package: (H, W)
+        for TransDSSL and MonodepthDecoder, (H/2, W/2) for DCMNet, (H/4,
+        W/4) for the DepthMSDeformAttn and DepthTransformerEncoder decoders."""
         B = images.shape[0]
         feats = self.backbone(torch.cat([images, prev_images], dim=0))
         f_cur = {k: v[:B] for k, v in feats.items()}

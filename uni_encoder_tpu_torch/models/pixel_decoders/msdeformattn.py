@@ -1,19 +1,23 @@
-"""Multi-scale deformable-attention pixel decoder (port of
-`uni_encoder_tpu/models/pixel_decoders/msdeformattn.py`, segmentation
-decoder only).
+"""Multi-scale deformable-attention pixel decoder and its depth variant
+(port of `uni_encoder_tpu/models/pixel_decoders/msdeformattn.py`).
 
 Project {res3, res4, res5} to `conv_dim` channels (1x1 conv + GroupNorm32),
 run a deformable-attention encoder over the flattened multi-scale token
 sequence (levels low-res first), split the tokens back into per-level maps,
-extend to stride 4 through an FPN lateral/output conv pair on res2, and emit
-mask features through a 1x1 conv. Maps are channels-first (B, C, H, W) here,
-where the convolutions and GroupNorm want them; tokens are (B, N, C).
+extend to stride 4 through an FPN lateral/output conv pair on res2
+(`_MSDeformTrunk`). `MSDeformAttnPixelDecoder` emits mask features through
+a 1x1 conv; `DepthMSDeformAttnPixelDecoder` emits a sigmoid disparity per
+level through reflect-conv / GroupNorm32 / ELU heads (`fpn.DispHead`), in
+NHWC. The trunk's maps are channels-first (B, C, H, W), where the
+convolutions and GroupNorm want them; tokens are (B, N, C). Both run K2
+(`ms_deform_attn_fused`) once per encoder layer.
 
 Parameter names follow the reference d2 state dict under
-`sem_seg_head.pixel_decoder.`: `input_proj.{i}.{0,1}`,
+`sem_seg_head.pixel_decoder.` (or `.depth_decoder.`): `input_proj.{i}.{0,1}`,
 `transformer.level_embed`, `transformer.encoder.layers.{l}.{self_attn.*,
 norm1, norm2, linear1, linear2}`, `adapter_1(.norm)`, `layer_1(.norm)`,
-`mask_features`.
+`mask_features`; the depth heads follow the JAX copy's flax names,
+`low_disp_{i}.{conv0, gn0, conv1, gn1, out}`.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from torch import nn
 
 from ...ops import ms_deform_attn_fused, position_embedding_sine, resize_hw
 from ..layers import Conv2dNorm, relu
+from .fpn import apply_disparity_heads, disparity_heads
 
 
 @functools.lru_cache(maxsize=32)
@@ -108,25 +113,25 @@ class _DeformableTransformer(nn.Module):
         )
 
 
-class MSDeformAttnPixelDecoder(nn.Module):
+class _MSDeformTrunk(nn.Module):
+    """The trunk both decoders share: input projections, the deformable
+    encoder and the FPN extension."""
+
     def __init__(
         self,
         in_channels: Dict[str, int],
         conv_dim: int = 256,
-        mask_dim: int = 256,
         transformer_layers: int = 6,
         n_heads: int = 8,
         n_points: int = 4,
         transformer_in_features: Sequence[str] = ("res3", "res4", "res5"),
         fpn_in_features: Sequence[str] = ("res2",),
-        num_multi_scale: int = 3,
     ):
         super().__init__()
         C = conv_dim
         self.conv_dim = C
         self.transformer_in_features = tuple(transformer_in_features)
         self.fpn_in_features = tuple(fpn_in_features)
-        self.num_multi_scale = num_multi_scale
         L = len(self.transformer_in_features)
         # low-res first (res5 -> res3)
         self.input_proj = nn.ModuleList(
@@ -139,7 +144,6 @@ class MSDeformAttnPixelDecoder(nn.Module):
                 in_channels[f], C, kernel_size=1, bias=False, norm=nn.GroupNorm(32, C, eps=1e-5)))
             self.add_module(f"layer_{idx + 1}", Conv2dNorm(
                 C, C, kernel_size=3, padding=1, bias=False, norm=nn.GroupNorm(32, C, eps=1e-5)))
-        self.mask_features = nn.Conv2d(C, mask_dim, kernel_size=1)
 
     def encode(self, features: Dict[str, torch.Tensor]):
         """Inputs of the deformable encoder: (src, pos, ref_abs, spatial_shapes)."""
@@ -160,10 +164,9 @@ class MSDeformAttnPixelDecoder(nn.Module):
         spatial_shapes = tuple(shapes)
         return src, pos, absolute_reference_points(spatial_shapes, src.device), spatial_shapes
 
-    def forward(self, features: Dict[str, torch.Tensor]):
-        """features: channels-last {res2..res5}. Returns (mask_features
-        (B, mask_dim, H/4, W/4), the lowest-res map, the `num_multi_scale`
-        lowest-res maps), all channels-first."""
+    def trunk(self, features: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+        """features: channels-last {res2..res5}. Returns the per-level maps,
+        low-res to high-res ([res5, res4, res3, res2]), channels-first."""
         y, pos, ref_abs, shapes = self.encode(features)
         for layer in self.transformer.encoder.layers:
             y = layer(y, pos, ref_abs, shapes)
@@ -179,6 +182,51 @@ class MSDeformAttnPixelDecoder(nn.Module):
             lat = getattr(self, f"adapter_{idx + 1}")(features[f].permute(0, 3, 1, 2))
             up = resize_hw(out[-1], lat.shape[2:], dims=(2, 3), mode="bilinear", align_corners=False)
             out.append(relu(getattr(self, f"layer_{idx + 1}")(lat + up)))
+        return out
 
-        mask_features = self.mask_features(out[-1])
-        return mask_features, out[0], out[: self.num_multi_scale]
+
+class MSDeformAttnPixelDecoder(_MSDeformTrunk):
+    def __init__(
+        self,
+        in_channels: Dict[str, int],
+        conv_dim: int = 256,
+        mask_dim: int = 256,
+        transformer_layers: int = 6,
+        n_heads: int = 8,
+        n_points: int = 4,
+        transformer_in_features: Sequence[str] = ("res3", "res4", "res5"),
+        fpn_in_features: Sequence[str] = ("res2",),
+        num_multi_scale: int = 3,
+    ):
+        super().__init__(in_channels, conv_dim, transformer_layers, n_heads, n_points, transformer_in_features,
+                         fpn_in_features)
+        self.num_multi_scale = num_multi_scale
+        self.mask_features = nn.Conv2d(conv_dim, mask_dim, kernel_size=1)
+
+    def forward(self, features: Dict[str, torch.Tensor]):
+        """features: channels-last {res2..res5}. Returns (mask_features
+        (B, mask_dim, H/4, W/4), the lowest-res map, the `num_multi_scale`
+        lowest-res maps), all channels-first."""
+        out = self.trunk(features)
+        return self.mask_features(out[-1]), out[0], out[: self.num_multi_scale]
+
+
+class DepthMSDeformAttnPixelDecoder(_MSDeformTrunk):
+    def __init__(
+        self,
+        in_channels: Dict[str, int],
+        conv_dim: int = 256,
+        transformer_layers: int = 6,
+        n_heads: int = 8,
+        n_points: int = 4,
+        transformer_in_features: Sequence[str] = ("res3", "res4", "res5"),
+        fpn_in_features: Sequence[str] = ("res2",),
+    ):
+        super().__init__(in_channels, conv_dim, transformer_layers, n_heads, n_points, transformer_in_features,
+                         fpn_in_features)
+        disparity_heads(self, conv_dim, len(self.transformer_in_features) + len(self.fpn_in_features))
+
+    def forward(self, features: Dict[str, torch.Tensor]) -> Dict:
+        """{("disp", s): (B, H / 2^(s+2), W / 2^(s+2), 1)} for s = 0..3
+        (the res2 FPN level is s = 0)."""
+        return apply_disparity_heads(self, self.trunk(features))
