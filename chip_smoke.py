@@ -14,7 +14,8 @@ kernels_on_served_tensors, reference_small, sequence, sequence_stages, frame,
 predictor, sequence_reference_small, train, train_reference_small,
 train_deterministic, train_backbones (one line per config), train_entry,
 eval, backbones (one line per config), decoders (one line per model, one
-for the modules no config selects), convert, demo and eval_ade20k.
+for the modules no config selects), convert, demo, eval_ade20k and
+multi_device.
 Each line carries `elapsed_s`, the seconds since the script started.
 Then the card's name and power limit as nvidia-smi reports them, the
 {"kernels": [...]} line, and last {"ok": true, "device": {...}}. Any failure
@@ -163,8 +164,8 @@ The phase `convert` runs the checkpoint-conversion command line,
 reference-style .pth split into two files; `evaluate_torch.build_model`
 from its output must equal the .pth load byte for byte. The phase `demo`
 runs `demo_torch.main --task panoptic` on Swin-T (the converted
-checkpoint) and on configs/cityscapes_dinat.yaml, 2 synthetic 1024x2048
-frames each with their t-2 frames: 8 renderings a frame at their sizes,
+checkpoint) and on configs/cityscapes_dinat.yaml, a synthetic 1024x2048
+frame each with its t-2 frame: 8 renderings a frame at their sizes,
 K2 6 and K1 0 launches a frame, K4 60 on DiNAT-L (a segmentation and a
 sequence backbone pass) and 0 on Swin-T, and matplotlib never imported;
 it reports predict and render seconds per frame. The phase `eval_ade20k`
@@ -179,6 +180,30 @@ version on the tensors that the entry point's own first deformable
 attention call, layer 0 of the pixel decoder, was given. These three
 come after `eval` and `backbones`: they import PIL (labels, JPEG) and cv2
 (COCO polygons), which the Cityscapes evaluation must not.
+
+The phase `multi_device` drives data-parallel training and sharded
+evaluation (`uni_encoder_tpu_torch/parallel/`) in child processes
+(`--multi-device-child`), three at once, each training and then
+evaluating. Two
+gloo ranks share the card (NCCL refuses two ranks on one card; gloo
+all-reduces the CUDA tensors through the host) and take 2 full-width
+Swin-T steps (deterministic, fp32) at local batch 1 a modality; before
+each, rank 0 takes one process's step at the global batch 2 from the same
+state with the same draws, and the same step with its images
+moved by one ulp, and holds its own step, at one process's matching and
+uncertain points (pinned: on random weights their inputs nearly tie),
+against the first within the bounds of tests/test_torch_port_parallel.py
+(MD_*) or twice the second's difference (what rounding alone moves); the
+ranks' states must have the same fingerprints after each step, and K2 and
+K3 6 launches a rank a step (K1, K4 and K5 none). One nccl rank takes a rank's step (batch 1) in a
+group of one against the step without a group (NCCL's all-reduce on the
+card), within the same bounds.
+`evaluate_torch`'s library path on 2 gloo ranks over a synthetic
+Cityscapes tree (2 val images, 2 depth frames, random weights from seed
+0) must give both ranks the one process's metrics within
+1e-9, each rank evaluating its shard (K2 6 an image, no other kernel); the line counts the
+predictions whose digests equal the one process's. Two processes
+time-sharing one card measure no scaling.
 
 Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of HBM, 67 TFLOP/s
 of fp32 outside the tensor cores, 495 TFLOP/s of TF32 and 989 TFLOP/s of
@@ -262,6 +287,22 @@ K5_KERNELS = ("na2d_bwd_query_kernel", "na2d_bwd_key_kernel", "na2d_bwd_rpb_kern
 K5_STRESS_SHAPE = (2, 13, 21, 3, 32, 1, 7, 4.0)
 DETERMINISTIC_CHILD = "--train-deterministic-child"
 CPU_STEP_CHILD = "--cpu-step-child"
+MULTI_DEVICE_CHILD = "--multi-device-child"
+MD_WORLD = 2  # gloo ranks sharing the one card (NCCL refuses two ranks on one card)
+MD_STEPS = 2  # training steps on the ranks, each against one process's at the global batch
+MD_EVAL_IMAGES = 2  # synthetic val images and depth frames (1 a rank)
+# the bounds of tests/test_torch_port_parallel.py: losses relative (d_ground:
+# its RANSAC plane fit's conditioning); gradients and AdamW's moments (mu and
+# sqrt(nu)) in relative norm against the larger of their own norm and their
+# share of their whole set's; the BatchNorm statistics against their largest
+# element; each parameter element within its learning rate times
+# MD_UPDATE_GAIN times its gradient's relative difference (AdamW's step
+# g / sqrt(v) moves by at most about twice the relative change of g), at most
+# MD_PARAM_LRS learning rates (a gradient within rounding of 0 has a noise
+# sign), plus two ulps of the parameter
+MD_LOSS_RTOL, MD_D_GROUND_RTOL = 1e-5, 2e-3
+MD_GRAD_RTOL, MD_BN_RTOL = 1e-4, 1e-4
+MD_UPDATE_GAIN, MD_PARAM_LRS = 4.0, 2.0
 DEFAULT_CONFIG = "default"  # a child's config argument for the default Swin-T model
 TRAIN_ENTRY_CONFIG = "configs/cityscapes_swin_unified.yaml"  # the production Swin-T config, read without PyYAML
 TRAIN_ENTRY_ITERS, TRAIN_ENTRY_ITEMS = 4, 4  # iterations (of 90 000); synthetic items per training split
@@ -280,7 +321,9 @@ EVAL_PLANTED = {"motion_decoder.layer1.0.weight": (256, 1536, 1, 1),
 BACKBONE_CONFIGS = {"resnet": "configs/cityscapes_r18.yaml", "convnext": "configs/cityscapes_convnext.yaml",
                     "dinat": "configs/cityscapes_dinat.yaml"}
 DEMO_CONFIGS = {"swin": TRAIN_ENTRY_CONFIG, "dinat": BACKBONE_CONFIGS["dinat"]}
-DEMO_FRAMES = 2  # synthetic 1024x2048 frames per config, each with its t-2 frame
+# synthetic 1024x2048 frames per config, each with its t-2 frame (one frame
+# keeps the whole smoke within its 800 s beside multi_device)
+DEMO_FRAMES = 1
 # a panoptic demo frame's renderings and their shapes
 DEMO_RENDERINGS = {**{k: (SEQ_H, SEQ_W, 3) for k in ("depth", "ego_flow", "independent_flow", "total_flow")},
                    "motion_mask": (SEQ_H, SEQ_W), **{k: (SEG_H, SEG_W, 3) for k in ("semantic", "panoptic", "instance")}}
@@ -746,13 +789,22 @@ def start_child(mode, out_path, *args, env=None):
 
 
 def finish_children(children, paths, timeout):
-    """Wait for `children` (killing every one still running if one fails or
-    the time runs out) and load what each saved to its path."""
+    """Wait for `children` (killing every one still running as soon as one
+    fails, or when `timeout` seconds have passed) and load what each saved
+    to its path."""
+    deadline = time.monotonic() + timeout
     try:
-        for child, path in zip(children, paths):
-            if child.wait(timeout=timeout) != 0:
-                with open(path + ".log") as log:
-                    raise AssertionError(f"child {path} exited {child.returncode}:\n{log.read()[-4000:]}")
+        while True:
+            codes = [child.poll() for child in children]
+            for path, code in zip(paths, codes):
+                if code not in (None, 0):
+                    with open(path + ".log") as log:
+                        raise AssertionError(f"child {path} exited {code}:\n{log.read()[-4000:]}")
+            if all(code == 0 for code in codes):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"children {paths} still running after {timeout} s")
+            time.sleep(0.5)
     finally:
         for child in children:
             if child.poll() is None:
@@ -765,16 +817,19 @@ def finish_children(children, paths, timeout):
     return runs
 
 
-def deterministic_children(paths, configs):
+def deterministic_children(paths, configs, meanwhile=lambda: None):
     """Run this script once per path as a child, all at once
     (`DETERMINISTIC_CHILD PATH CONFIG...`, CUBLAS_WORKSPACE_CONFIG=:4096:8):
-    each takes one deterministic step per config in turn, saved there.
-    Returns per config the children's runs and whether their losses,
-    gradients and parameters are the same bytes; and the environment's
-    workspace setting."""
+    each takes one deterministic step per config in turn, saved there;
+    this process runs `meanwhile()` while they do. Returns per config the
+    children's runs and whether their losses, gradients and parameters are
+    the same bytes; and the environment's workspace setting."""
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
-    loaded = finish_children([start_child(DETERMINISTIC_CHILD, path, *configs, env=env) for path in paths], paths,
-                             timeout=600)
+    children = [start_child(DETERMINISTIC_CHILD, path, *configs, env=env) for path in paths]
+    for child in children:
+        kill_at_exit(child)
+    meanwhile()
+    loaded = finish_children(children, paths, timeout=600)
     out = {}
     for config in configs:
         runs = [r[config] for r in loaded]
@@ -1318,9 +1373,10 @@ def k4_phase(dev, smi, usage):
     sub-grids shorter than the kernel), and at K4_EDGE_SHAPES, in bf16 and
     fp32; each shape's kernel, plain and bound times, blocks per launch,
     shared memory and registers per block (`usage`: ptxas's, per kernel);
-    each pass's 30 launches summed; and flex_attention (a library call,
-    timed here and used nowhere in the port) at stage 0, dilation 1. Returns
-    the kernels line's fields, at the frame's stage 0, dilation 1, bf16."""
+    each pass's 30 launches summed. Returns the kernels line's fields, at
+    the frame's stage 0, dilation 1, bf16, and the compilation of its
+    library yardstick there (`k4_library`), to be run later
+    (`compile_yardstick`)."""
     from uni_encoder_tpu_torch import kernels
     from uni_encoder_tpu_torch.config import load_config
     from uni_encoder_tpu_torch.ops.neighborhood_attention import (
@@ -1385,29 +1441,11 @@ def k4_phase(dev, smi, usage):
                     for k in ("bf16_ms", "bf16_device_ms", "fp32_ms", "fp32_device_ms", "plain_ms", "bound_ms")}
                    for ls in (layers, pair_layers))
 
-    # the library yardstick at stage 0, dilation 1 (no repeated keys there);
-    # torch.compile's caches go under build/, beside the kernels
-    build = os.path.dirname(kernels.BUILD_DIR)
-    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", os.path.join(build, "inductor"))
-    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(build, "triton"))
-    q, k, v, rpb, ref, scale = stage0
-    library = {"call": "torch.compile(flex_attention) with the window as mask_mod and rpb as score_mod"}
-    try:
-        with torch.inference_mode():
-            t0 = time.perf_counter()
-            out, call = flex_neighborhood(q * scale, k, v, rpb, kernel, 1)
-            torch.cuda.synchronize()
-            library["compile_s"] = time.perf_counter() - t0
-            library["max_abs_err_vs_plain"] = (out.float() - ref.float()).abs().max().item()
-            library["ms"] = cuda_ms(call, 10)
-    except Exception as e:  # a yardstick only: its failure is reported, and the row says null
-        library["error"] = f"{type(e).__name__}: {str(e)[:400]}"
-    del stage0, q, k, v, rpb, ref
     torch.cuda.empty_cache()
     B, H, W, nh, dh, _ = layers[0]
     emit("k4_vs_plain", kernel=kernel, dh_and_heads="from configs/cityscapes_dinat.yaml", shapes=shapes,
          edge_shapes_with_kernel=edges, frame={"layers": len(layers), **frame},
-         pair={"layers": len(pair_layers), **pair}, library_stage0_dilation1=library,
+         pair={"layers": len(pair_layers), **pair}, library_stage0_dilation1="phase library_yardsticks",
          tolerance="fp32 atol/rtol 1e-5 (also the lse against torch.logsumexp of the plain logits); bf16 within 1 "
                    "ulp of the fp32-computed plain output + 1e-5",
          seconds=time.perf_counter() - t_phase, card=smi)
@@ -1416,11 +1454,11 @@ def k4_phase(dev, smi, usage):
     return dict(max_abs_err=max(max(r["bf16_max_abs_err"], r["fp32_max_abs_err"]) for r in rows),
                 lse_max_abs_err=max(r["fp32_lse_max_abs_err"] for r in rows),
                 ms=s0["bf16_ms"], plain_ms=s0["plain_ms"], bound_ms=s0["bound_ms"], bound_by=s0["bound_by"],
-                library_ms=library.get("ms"), shape=[B, H, W, nh, dh, 1], fp32_ms=s0["fp32_ms"],
+                shape=[B, H, W, nh, dh, 1], fp32_ms=s0["fp32_ms"],
                 frame_ms=frame["bf16_ms"], frame_plain_ms=frame["plain_ms"], frame_bound_ms=frame["bound_ms"],
                 pair_ms=pair["bf16_ms"], pair_plain_ms=pair["plain_ms"], pair_bound_ms=pair["bound_ms"],
                 device_ms=s0["bf16_device_ms"], frame_device_ms=frame["bf16_device_ms"],
-                pair_device_ms=pair["bf16_device_ms"])
+                pair_device_ms=pair["bf16_device_ms"]), lambda: k4_library(*stage0, kernel)
 
 
 def k5_bound(B, H, W, nh, dh, kernel):
@@ -1452,35 +1490,74 @@ def k5_check(got, ref, B, H, W, dh):
     return errs
 
 
-def flex_backward(qkv, rpb, grad_out, dqkv, scale, kernel):
-    """The library yardstick for K5 at dilation 1 (no repeated keys): the
-    backward of torch.compile(flex_attention) (`flex_neighborhood`) for dq,
-    dk and dv (its bias is a captured table: no drpb), timed alone on a
-    retained graph, so compiled without donated buffers; its caches go
-    under build/. Returns the library fields, with the error instead of
-    `ms` if it does not compile (a yardstick only: the row then says null)."""
-    from torch._functorch import config as functorch_config
-
+def compile_yardstick(compile_fn):
+    """Compile a library yardstick (`compile_fn()`: its fields and its
+    compiled call, raising where it does not compile) into torch.compile's
+    caches under build/, beside the kernels. It is compiled while this
+    process waits for children (phases train_deterministic and
+    multi_device), on the host's cores, and timed by `time_yardstick` once
+    they are done. Returns (its fields with compile_s, the call or None)."""
     from uni_encoder_tpu_torch import kernels
 
     build = os.path.dirname(kernels.BUILD_DIR)
     os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", os.path.join(build, "inductor"))
     os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(build, "triton"))
-    library = {"call": "backward of torch.compile(flex_attention), the window as mask_mod and rpb as score_mod: "
-                       "dq, dk, dv"}
+    t0 = time.perf_counter()
     try:
-        with functorch_config.patch(donated_buffer=False):
-            leaf = qkv.clone().requires_grad_(True)
-            t0 = time.perf_counter()
-            out, _ = flex_neighborhood(leaf[:, :, :, 0] * scale, leaf[:, :, :, 1], leaf[:, :, :, 2], rpb, kernel, 1)
-            grad = torch.autograd.grad(out, leaf, grad_out, retain_graph=True)[0]
-            torch.cuda.synchronize()
-            library["compile_s"] = time.perf_counter() - t0
-            library["max_abs_err_vs_k5_dqkv"] = (grad - dqkv).abs().max().item()
-            library["ms"] = cuda_ms(lambda: torch.autograd.grad(out, leaf, grad_out, retain_graph=True), 10)
+        fields, call = compile_fn()
     except Exception as e:  # a yardstick only: its failure is reported, and the row says null
-        library["error"] = f"{type(e).__name__}: {str(e)[:400]}"
-    return library
+        fields, call = {"error": f"{type(e).__name__}: {str(e)[:400]}"}, None
+    fields["compile_s"] = time.perf_counter() - t0
+    return fields, call
+
+
+def time_yardstick(compiled, context=contextlib.nullcontext):
+    """A compiled yardstick's fields with `ms` (10 calls under `context`,
+    the card otherwise idle), or with the error and no `ms` (the row then
+    says null)."""
+    fields, call = compiled
+    if call is not None:
+        try:
+            with context():
+                fields["ms"] = cuda_ms(call, 10)
+        except Exception as e:  # a yardstick only
+            fields["error"] = f"{type(e).__name__}: {str(e)[:400]}"
+    return fields
+
+
+def k4_library(q, k, v, rpb, ref, scale, kernel):
+    """The library yardstick for K4 at stage 0, dilation 1 (no repeated
+    keys there): torch.compile(flex_attention) (`flex_neighborhood`),
+    compiled and held against the plain output; its call runs under
+    torch.inference_mode, as it was compiled."""
+    with torch.inference_mode():
+        out, call = flex_neighborhood(q * scale, k, v, rpb, kernel, 1)
+        torch.cuda.synchronize()
+        return {"call": "torch.compile(flex_attention) with the window as mask_mod and rpb as score_mod",
+                "max_abs_err_vs_plain": (out.float() - ref.float()).abs().max().item()}, call
+
+
+def functorch_patch(**settings):
+    """A context factory: torch._functorch's config patched by `settings`."""
+    from torch._functorch import config as functorch_config
+
+    return lambda: functorch_config.patch(**settings)
+
+
+def k5_library(qkv, rpb, grad_out, dqkv, scale, kernel):
+    """The library yardstick for K5 at dilation 1 (no repeated keys): the
+    backward of torch.compile(flex_attention) (`flex_neighborhood`) for dq,
+    dk and dv (its bias is a captured table: no drpb), compiled and held
+    against K5's dqkv; its call is the backward alone on a retained graph,
+    so it is compiled (and timed) without donated buffers."""
+    with functorch_patch(donated_buffer=False)():
+        leaf = qkv.clone().requires_grad_(True)
+        out, _ = flex_neighborhood(leaf[:, :, :, 0] * scale, leaf[:, :, :, 1], leaf[:, :, :, 2], rpb, kernel, 1)
+        grad = torch.autograd.grad(out, leaf, grad_out, retain_graph=True)[0]
+        torch.cuda.synchronize()
+    return ({"call": "backward of torch.compile(flex_attention), the window as mask_mod and rpb as score_mod: "
+                     "dq, dk, dv", "max_abs_err_vs_k5_dqkv": (grad - dqkv).abs().max().item()},
+            lambda: torch.autograd.grad(out, leaf, grad_out, retain_graph=True))
 
 
 def k5_phase(dev, smi, usage):
@@ -1493,10 +1570,9 @@ def k5_phase(dev, smi, usage):
     calls back to back, host included, and the device alone, replayed from a
     CUDA graph), plain time (autograd's backward alone), bound, blocks,
     shared memory and registers per block (`usage`: ptxas's, per kernel);
-    each pass's 30 launches summed; and torch.compile(flex_attention)'s
-    backward (dq, dk, dv; a library call timed here and used nowhere in the
-    port) at stage 0, dilation 1. Returns the kernels line's fields at the
-    crop's stage 0, dilation 1."""
+    each pass's 30 launches summed. Returns the kernels line's fields at the
+    crop's stage 0, dilation 1, and the compilation of its library yardstick
+    there (`k5_library`), to be run later (`compile_yardstick`)."""
     from uni_encoder_tpu_torch import kernels
     from uni_encoder_tpu_torch.config import load_config
     from uni_encoder_tpu_torch.ops.neighborhood_attention import (
@@ -1578,22 +1654,21 @@ def k5_phase(dev, smi, usage):
               for name, ls in (("crop", crop), ("triples", triples))}
 
     qkv, rpb, grad_out, got, scale = stage0
-    library = flex_backward(qkv, rpb, grad_out, got[0], scale, kernel)
-    del stage0, qkv, rpb, grad_out, got
-    torch.cuda.empty_cache()
     emit("k5_vs_plain", kernel=kernel, dtype="float32", shapes=shapes, edge_shapes_with_kernel=edges, **passes,
-         library_stage0_dilation1=library, plain="autograd backward of neighborhood_attention_2d_plain",
+         library_stage0_dilation1="phase library_yardsticks",
+         plain="autograd backward of neighborhood_attention_2d_plain",
          tolerance="dqkv atol 2e-5 + rtol 1e-4; drpb atol 1e-6 * sqrt(B*H*W*dh) + rtol 1e-4; reruns byte-identical",
          seconds=time.perf_counter() - t_phase, card=smi)
     s0 = shapes[str(crop[0])]
     rows = list(shapes.values()) + list(edges.values())
     return dict(max_abs_err=max(r["max_abs_err"] for r in rows), ms=s0["ms"], plain_ms=s0["plain_ms"],
-                bound_ms=s0["bound_ms"], bound_by=s0["bound_by"], library_ms=library.get("ms"),
+                bound_ms=s0["bound_ms"], bound_by=s0["bound_by"],
                 shape=list(crop[0][:5]) + [1], device_ms=s0["device_ms"], deterministic=True,
                 crop_ms=passes["crop"]["ms"], crop_device_ms=passes["crop"]["device_ms"],
                 crop_plain_ms=passes["crop"]["plain_ms"], crop_bound_ms=passes["crop"]["bound_ms"],
                 triples_ms=passes["triples"]["ms"], triples_device_ms=passes["triples"]["device_ms"],
-                triples_plain_ms=passes["triples"]["plain_ms"], triples_bound_ms=passes["triples"]["bound_ms"])
+                triples_plain_ms=passes["triples"]["plain_ms"], triples_bound_ms=passes["triples"]["bound_ms"]), \
+        lambda: k5_library(qkv, rpb, grad_out, got[0], scale, kernel)
 
 
 def train_backbones_phase(dev, smi, kernel_fns, dinat_deterministic, workspace):
@@ -2322,6 +2397,629 @@ def eval_ade20k_phase(dev, smi, kernel_fns):
     return {task: r["launches"] for task, r in runs.items()}
 
 
+def scale_aware_errors(got, ref):
+    """Per tensor |got - ref| / max(|ref|, |ref_all| sqrt(n / n_all)) (a
+    tensor's error against the whole set's root-mean-square scale where its
+    own norm is below it: a gradient that is zero in exact arithmetic holds
+    only rounding noise), and the whole set's relative error; in fp64 on
+    the tensors' device."""
+    ref = {k: v.double() for k, v in ref.items()}
+    n_all = sum(v.numel() for v in ref.values())
+    norm_all = float(torch.sqrt(sum((v * v).sum() for v in ref.values())))
+    diffs = {k: float((got[k].double() - v).norm()) for k, v in ref.items()}
+    per = {k: diffs[k] / max(float(v.norm()), norm_all * (v.numel() / n_all) ** 0.5, 1e-30) for k, v in ref.items()}
+    return per, float(np.sqrt(sum(d * d for d in diffs.values()))) / norm_all
+
+
+def moment_errors(got, ref):
+    """`scale_aware_errors` of AdamW's moments of two OptStates, by
+    parameter: of mu and of sqrt(nu) (in the gradient's units), each set
+    scaled apart, as the gradients are; and the larger of the two sets'
+    whole errors."""
+    names = [n for bucket in ref.names for n in bucket]
+    out, whole = {}, 0.0
+    for key, label, fn in (("mu", "mu", lambda x: x), ("nu", "sqrt_nu", torch.sqrt)):
+        g, r = ({n: fn(x) for n, x in zip(names, (x for bucket in getattr(o, key) for x in bucket))}
+                for o in (got, ref))
+        per, w = scale_aware_errors(g, r)
+        out.update({f"{label} {n}": e for n, e in per.items()})
+        whole = max(whole, w)
+    return out, whole
+
+
+def param_errors(gp, rp, lrs, clip_rel):
+    """Each parameter's largest |got - ref| over its bound (`md_within_bounds`
+    holds it to 1): the step's learning rate `lrs[name]` times MD_UPDATE_GAIN
+    times the relative difference of its clipped gradient (its gradient's
+    plus the clip scale's, `clip_rel`; + 1e-5, the update's own rounding),
+    at most MD_PARAM_LRS, plus two ulps of the parameter. Where the reference
+    gradient stands clear of rounding noise this is tight, so a wrong update
+    shows; where it is noise (0 in exact arithmetic) AdamW moves an element
+    by up to a learning rate either way."""
+    out = {}
+    for k, p in gp.items():
+        r = rp[k]
+        g = torch.zeros_like(r) if p.grad is None else p.grad
+        g_ref = torch.zeros_like(r) if r.grad is None else r.grad
+        rel = torch.where(g_ref != 0, (g - g_ref).abs() / g_ref.abs(), torch.full_like(g_ref, float("inf")))
+        bound = lrs[k] * torch.clamp(MD_UPDATE_GAIN * (rel + clip_rel) + 1e-5, max=MD_PARAM_LRS) \
+            + 2 * torch.finfo(torch.float32).eps * r.detach().abs()
+        diff = (p.detach() - r.detach()).abs()
+        out[k] = float(torch.where(diff == 0, 0.0, diff / bound).max())
+    return out
+
+
+def md_step_errors(got, ref, lrs):
+    """Two steps' (state, losses) from the same state against each other:
+    each loss term's relative error, `scale_aware_errors` of the gradients
+    and of AdamW's moments (`moment_errors`), `param_errors` (`lrs`: each
+    parameter's learning rate in the step, `step_lrs`), each BatchNorm
+    statistic's largest difference over its largest element, and how many
+    of each group's tensors are the same bytes."""
+    gp, rp = dict(got[0].model.named_parameters()), dict(ref[0].model.named_parameters())
+    gb, rb = dict(got[0].model.named_buffers()), dict(ref[0].model.named_buffers())
+    grads = {k: p.grad for k, p in gp.items() if p.grad is not None}
+    ref_grads = {k: p.grad for k, p in rp.items() if p.grad is not None}
+    bn = [k for k in rb if "running_" in k]
+    losses = {k: abs(float(v) - float(ref[1][k])) / max(abs(float(ref[1][k])), 1e-30) for k, v in got[1].items()}
+    return {
+        "losses": losses,
+        "grads": scale_aware_errors(grads, ref_grads),
+        "params": param_errors(gp, rp, lrs, losses["clip_scale"]),
+        "moments": moment_errors(got[0].opt, ref[0].opt),
+        "bn": {k: float((gb[k] - rb[k]).abs().max() / rb[k].abs().max()) for k in bn},
+        "byte_equal": {"losses": sum(torch.equal(v, ref[1][k]) for k, v in got[1].items()),
+                       "grads": sum(torch.equal(v, ref_grads[k]) for k, v in grads.items()),
+                       "params": sum(torch.equal(p, rp[k]) for k, p in gp.items()),
+                       "bn": sum(torch.equal(gb[k], rb[k]) for k in bn)},
+        "counts": {"losses": len(got[1]), "grads": len(grads), "params": len(gp), "bn": len(bn)},
+    }
+
+
+def md_within_bounds(errs):
+    """The quantities of `md_step_errors` past the CPU test's bounds, each
+    also allowed twice its `spread` where the errors hold one (the same
+    step's own difference with its images moved by one ulp); and how many
+    passed by the spread alone."""
+    spread = errs.get("spread")
+    groups = {"loss": (errs["losses"], spread and spread["losses"],
+                       lambda k: MD_D_GROUND_RTOL if k == "monodepth/d_ground" else MD_LOSS_RTOL),
+              "grad": (errs["grads"][0], spread and spread["grads"][0], lambda k: MD_GRAD_RTOL),
+              "moment": (errs["moments"][0], spread and spread["moments"][0], lambda k: MD_GRAD_RTOL),
+              "bn": (errs["bn"], spread and spread["bn"], lambda k: MD_BN_RTOL),
+              "param": (errs["params"], None, lambda k: 1.0)}
+    bad, by_spread = [], 0
+    for group, (got, noise, bound) in groups.items():
+        for k, e in got.items():
+            if not e <= max(bound(k), 2 * noise[k] if noise else 0.0):
+                bad.append(f"{group} {k}")
+            by_spread += e > bound(k)
+    return bad, by_spread - len(bad)
+
+
+def md_error_summary(errs):
+    """The largest errors of each group and their tensors, how many
+    gradients lie past 1e-5 ... 1e-1, and the byte-equal counts."""
+    def worst(d, n=3):
+        return sorted(d.items(), key=lambda kv: -kv[1])[:n]
+
+    def past(d):
+        return {f"{t:g}": sum(e > t for e in d.values()) for t in (1e-5, 1e-4, 1e-3, 1e-2, 1e-1)}
+
+    return {"loss": worst(errs["losses"], 4), "grad": worst(errs["grads"][0]), "grads_whole": errs["grads"][1],
+            "grads_past": past(errs["grads"][0]), "param_over_bound": worst(errs["params"]),
+            "moment": worst(errs["moments"][0]), "moments_whole": errs["moments"][1],
+            "moments_past": past(errs["moments"][0]), "bn": worst(errs["bn"], 2),
+            "byte_equal": errs["byte_equal"], "counts": errs["counts"], **errs.get("extra", {})}
+
+
+def fingerprints(state):
+    """A position-weighted 64-bit sum of the 32-bit words of every
+    parameter, gradient, buffer and optimizer moment of a TrainState, and
+    their plain sum, on the card: a word that differs changes the first
+    (its difference, below 2^32, times an odd weight below 2^31 cannot
+    vanish modulo 2^64)."""
+    model = state.model
+    tensors = list(model.parameters()) + [p.grad for p in model.parameters() if p.grad is not None]
+    tensors += list(model.buffers()) + [m for bucket in state.opt.mu + state.opt.nu for m in bucket]
+    out = []
+    for x in tensors:
+        words = x.detach().contiguous().view(torch.int32).reshape(-1).to(torch.int64)
+        weights = (torch.arange(words.numel(), device=words.device) * 2654435761 % (1 << 31)) | 1
+        out.append([int((words * weights).sum()), int(words.sum())])
+    return out
+
+
+def timed_collectives():
+    """Time every sum all-reduce of `parallel/mesh.py` (fenced by
+    synchronization) and the gradients' one apart; returns the running
+    totals."""
+    from uni_encoder_tpu_torch.parallel import mesh
+
+    totals = {"calls": 0, "s": 0.0, "gradients_s": 0.0}
+    all_reduce, gradients = mesh._all_reduce_, mesh.all_reduce_gradients
+
+    def timed(x):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = all_reduce(x)
+        torch.cuda.synchronize()
+        totals["calls"] += 1
+        totals["s"] += time.perf_counter() - t0
+        return out
+
+    def timed_gradients(params):
+        t0 = time.perf_counter()
+        gradients(params)
+        totals["gradients_s"] += time.perf_counter() - t0
+
+    mesh._all_reduce_, mesh.all_reduce_gradients = timed, timed_gradients
+    return totals
+
+
+def copy_state(dst, src):
+    """Make TrainState `dst` hold `src`'s parameters, buffers, optimizer
+    moments and counts, in place."""
+    with torch.no_grad():
+        for a, b in zip(list(dst.model.parameters()) + list(dst.model.buffers()),
+                        list(src.model.parameters()) + list(src.model.buffers())):
+            a.copy_(b)
+        for a, b in zip([m for bucket in dst.opt.mu + dst.opt.nu for m in bucket],
+                        [m for bucket in src.opt.mu + src.opt.nu for m in bucket]):
+            a.copy_(b)
+    dst.step, dst.opt.count = src.step, src.opt.count
+
+
+def snapshot(state, losses):
+    """What `md_step_errors` reads of a step, copied: (a state-like holder
+    of the model's parameters, gradients and buffers and AdamW's moments,
+    the losses)."""
+    import types
+
+    model = types.SimpleNamespace(
+        named_parameters=lambda: iter(params.items()), named_buffers=lambda: iter(buffers.items()))
+    params = {}
+    for k, p in state.model.named_parameters():
+        params[k] = p.detach().clone()
+        params[k].grad = None if p.grad is None else p.grad.clone()
+    buffers = {k: b.clone() for k, b in state.model.named_buffers()}
+    opt = types.SimpleNamespace(names=state.opt.names, mu=[[m.clone() for m in b] for b in state.opt.mu],
+                                nu=[[v.clone() for v in b] for b in state.opt.nu])
+    return types.SimpleNamespace(model=model, opt=opt), {k: v.clone() for k, v in losses.items()}
+
+
+def step_lrs(optimizer, state):
+    """Each parameter's learning rate in the next step of TrainState
+    `state` (`FusedAdamW`'s poly LR times its bucket's multiplier)."""
+    lr = optimizer.lr_at(state.opt.count)
+    return {n: lr * optimizer.mults[i] for i, bucket in enumerate(state.opt.names) for n in bucket}
+
+
+def kernel_wrappers():
+    """Every kernel's wrapper by its key; each counts its launches."""
+    from uni_encoder_tpu_torch.inference.fused_postprocess import fused_postprocess_cuda
+    from uni_encoder_tpu_torch.ops.ms_deform_attn import ms_deform_attn_fused_backward_cuda, ms_deform_attn_fused_cuda
+    from uni_encoder_tpu_torch.ops.neighborhood_attention import (
+        neighborhood_attention_2d_backward_cuda,
+        neighborhood_attention_2d_cuda,
+    )
+
+    return {"k1": fused_postprocess_cuda, "k2": ms_deform_attn_fused_cuda, "k3": ms_deform_attn_fused_backward_cuda,
+            "k4": neighborhood_attention_2d_cuda, "k5": neighborhood_attention_2d_backward_cuda}
+
+
+def ulp_moved(seg, seq):
+    """The batch with every float of its images moved by one ulp up or down
+    (a fixed random pattern): the same step from inputs that differ by
+    rounding alone, whose difference shows how far rounding inside the step
+    moves each quantity."""
+    g = torch.Generator(device=seg["images"].device).manual_seed(7)
+
+    def move(x):
+        up = torch.rand(x.shape, generator=g, device=x.device) < 0.5
+        return torch.where(up, torch.nextafter(x, torch.full_like(x, float("inf"))),
+                           torch.nextafter(x, torch.full_like(x, float("-inf"))))
+
+    return ({k: move(v) if k == "images" else v for k, v in seg.items()},
+            {k: move(v) if k.endswith("images") else v for k, v in seq.items()})
+
+
+def wait_for(path, timeout=1500):
+    """Block until `path` exists: a phase multi_device child, set up while
+    earlier phases run, waits there for the phase to begin."""
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} did not appear within {timeout} s")
+        time.sleep(0.2)
+
+
+def md_train_rank(rank, rendezvous):
+    """A training rank of phase multi_device: the default Swin-T model at
+    full width (deterministic, fp32), its rows of train's synthetic batch
+    (TRAIN_BATCH crops and triples: one each), MD_STEPS steps in a gloo
+    group of MD_WORLD ranks on the one card. Before each of its steps rank 0
+    takes one process's step on the whole batch from its own state, the
+    group out of its sight (the other rank waits for it in a collective),
+    and the same step from ulp-moved images (`ulp_moved`: what rounding
+    alone moves), and holds its step, at one process's discrete choices,
+    against the first (`md_step_errors`; the spread's as `spread`). Per
+    step: the step's seconds, the collectives' seconds, every kernel's
+    launches, peak GB, the state's `fingerprints` and the choices this
+    rank's own sums would make otherwise."""
+    from unittest import mock
+
+    from uni_encoder_tpu_torch.config import Config
+    from uni_encoder_tpu_torch.parallel import mesh
+    from uni_encoder_tpu_torch.training import criterion as criterion_module
+    from uni_encoder_tpu_torch.training.train_step import Trainer
+
+    dev = torch.device("cuda", 0)
+    mesh.init_process_group("gloo", rank, MD_WORLD, "file://" + rendezvous)
+    cfg = Config()
+    n_texts = cfg.model.one_former.num_object_queries - cfg.model.text_encoder.n_ctx
+    trainer = Trainer(cfg, device=dev, deterministic=True)
+    seg, seq = train_batches(0, TRAIN_BATCH, cfg.input.seg_crop_train, cfg.input.depth_hw_train, TRAIN_SLOTS,
+                             TRAIN_VALID, n_texts, dev)
+    mine = mesh.shard_batch(seg, rank, MD_WORLD), mesh.shard_batch(seq, rank, MD_WORLD)
+    state, gen = trainer.init(seed=0), torch.Generator(device=dev).manual_seed(0)
+    if rank == 0:  # one more state: one process's step, then the same step from ulp-moved images
+        other, ref_gen = trainer.init(seed=0), torch.Generator(device=dev).manual_seed(0)
+    wait_for(rendezvous + ".go")
+    totals, wrappers = timed_collectives(), kernel_wrappers()
+    # The step's two discrete choices, Hungarian matching and the mask
+    # losses' most uncertain points, flip where their inputs nearly tie, as
+    # they do on random weights (the queries' costs, the masks' logits): the
+    # ranks' steps are held against one process's at its choices (pinned),
+    # and how many of them this rank's own sums would make otherwise is
+    # counted
+    choices = {"assign_on_host": ("matching", criterion_module.assign_on_host),
+               "uncertainty_points": ("points", criterion_module.uncertainty_points)}
+    pinned, made = {}, {"matching": [], "points": []}
+
+    def pinnable(key, fn):
+        def run(*args):
+            out = fn(*args)
+            made[key].append(out)
+            return pinned[key][len(made[key]) - 1] if key in pinned else out
+        return run
+
+    for name, (key, fn) in choices.items():
+        setattr(criterion_module, name, pinnable(key, fn))
+    b = TRAIN_BATCH // MD_WORLD
+    rows_of = {"matching": lambda x: x[:, :, rank * b:(rank + 1) * b],  # (1 call, sets, B, slots)
+               "points": lambda x: x[:, rank * b * TRAIN_SLOTS:(rank + 1) * b * TRAIN_SLOTS]}  # (sets, B * slots, ...)
+    steps = []
+    for _ in range(MD_STEPS):
+        rec = {}
+        pinned.clear()
+        for v in made.values():
+            v.clear()
+        if rank == 0:  # one process's step and its spread, from this rank's state
+            draws = trainer.make_draws(ref_gen, seg, seq, dev)
+            lrs = step_lrs(trainer.optimizer, state)
+            with mock.patch.object(mesh, "active", lambda: False):
+                copy_state(other, state)
+                ref = snapshot(*trainer.train_step(other, seg, seq, draws=draws))
+                one_process = {key: torch.stack(v) for key, v in made.items()}
+                pinned.update({key: list(v) for key, v in made.items()})
+                for v in made.values():
+                    v.clear()
+                copy_state(other, state)
+                spread = md_step_errors(trainer.train_step(other, *ulp_moved(seg, seq), draws=draws), ref, lrs)
+            torch.cuda.empty_cache()  # the batch-2 steps' blocks, for the other processes on the card
+        else:
+            sets = trainer.n_prediction_sets()
+            crit = trainer.criterion
+            one_process = {"matching": torch.zeros(1, sets, TRAIN_BATCH, TRAIN_SLOTS, dtype=torch.int64, device=dev),
+                           "points": torch.zeros(sets, TRAIN_BATCH * TRAIN_SLOTS, crit.num_points, 2, device=dev)}
+        # rank 0 hands every rank one process's choices (and both start the step together)
+        pinned.update({key: rows_of[key](mesh.all_reduce_sum(one_process[key])) for key in sorted(one_process)})
+        for v in made.values():
+            v.clear()
+        reset_launches(*wrappers.values())
+        collectives = dict(totals)
+        torch.cuda.reset_peak_memory_stats(dev)
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = trainer.train_step(state, *mine, gen)
+        torch.cuda.synchronize()
+        rec["step_s"] = time.perf_counter() - t0
+        rec["collectives"] = {k: totals[k] - collectives[k] for k in totals}
+        rec["launches"] = {key: f.launches for key, f in wrappers.items()}
+        rec["peak_gb"], rec["resident_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9, resident / 1e9
+        rec["fingerprints"] = fingerprints(state)
+        own = torch.stack(made["matching"])[..., :TRAIN_VALID]
+        rec["choices"] = {
+            "valid_targets_matched_otherwise": int((own != pinned["matching"][..., :TRAIN_VALID]).sum()),
+            "valid_targets": own.numel(),
+            "uncertain_points_chosen_otherwise": int((torch.stack(made["points"]) != pinned["points"]).any(-1).sum()),
+            "points": int(pinned["points"].shape[:-1].numel())}
+        if rank == 0:
+            rec["errors"] = md_step_errors(got, ref, lrs)
+            rec["errors"]["spread"] = spread
+        steps.append(rec)
+    for name, (_, fn) in choices.items():  # the evaluation that follows runs unpinned
+        setattr(criterion_module, name, fn)
+    open(f"{rendezvous}.trained{rank}", "w").close()  # the nccl rank's steps wait for both ranks'
+    return {"steps": steps, "local_batch": int(mine[0]["images"].shape[0])}
+
+
+def md_train_nccl(rendezvous):
+    """Phase multi_device's nccl rank: a training rank's step (rank 0's rows
+    of train's batch, deterministic) without a process group (the group of
+    one rank under nccl out of its sight), then in that group (the
+    gradients all-reduced by NCCL on the card), from the same weights and
+    draws, after the training ranks' steps: `md_step_errors` of the second
+    against the first, and the backend."""
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from uni_encoder_tpu_torch.config import Config
+    from uni_encoder_tpu_torch.parallel import mesh
+    from uni_encoder_tpu_torch.training.train_step import Trainer
+
+    dev = torch.device("cuda", 0)
+    cfg = Config()
+    n_texts = cfg.model.one_former.num_object_queries - cfg.model.text_encoder.n_ctx
+    trainer = Trainer(cfg, device=dev, deterministic=True)
+    seg, seq = (mesh.shard_batch(b, 0, MD_WORLD) for b in train_batches(
+        0, TRAIN_BATCH, cfg.input.seg_crop_train, cfg.input.depth_hw_train, TRAIN_SLOTS, TRAIN_VALID, n_texts, dev))
+    # NCCL's communicator and buffers (allocated outside torch's allocator)
+    # while the card has room, then the steps once the training ranks are
+    # done with theirs (a batch-2 step of rank 0 holds ≈43 GB)
+    mesh.init_process_group("nccl", 0, 1, "file://" + rendezvous)
+    mesh.all_reduce_sum(torch.zeros(1, device=dev))
+    backend = dist.get_backend()
+    state = trainer.init(seed=0)
+    wait_for(rendezvous + ".go")
+    for r in range(MD_WORLD):
+        wait_for(os.path.join(os.path.dirname(rendezvous), f"rendezvous_train.trained{r}"))
+    lrs = step_lrs(trainer.optimizer, state)
+    with mock.patch.object(mesh, "active", lambda: False):
+        ref = trainer.train_step(state, seg, seq, torch.Generator(device=dev).manual_seed(0))
+    del state
+    totals = timed_collectives()
+    got = trainer.train_step(trainer.init(seed=0), seg, seq, torch.Generator(device=dev).manual_seed(0))
+    errors = md_step_errors(got, ref, lrs)
+    mesh.destroy_process_group()
+    return {"backend": backend, "errors": errors, "collectives": dict(totals),
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def output_digest(out):
+    """sha256 of a Predictor output's arrays and values, in key order."""
+    import hashlib
+
+    h = hashlib.sha256()
+
+    def feed(x):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                h.update(str(k).encode())
+                feed(x[k])
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                feed(v)
+        elif torch.is_tensor(x) or isinstance(x, np.ndarray):
+            a = x.detach().cpu().numpy() if torch.is_tensor(x) else x
+            h.update(str((a.dtype, a.shape)).encode())
+            h.update(np.ascontiguousarray(a).tobytes())
+        else:
+            h.update(repr(x).encode())
+
+    feed(out)
+    return h.hexdigest()
+
+
+def md_eval(root):
+    """The evaluation of a phase multi_device child, after its training:
+    `evaluate_torch.main` (the library path) on the synthetic tree under
+    `root` with the default model's random weights from seed 0, as this
+    process's rank of its gloo group on the card, or alone without one: the
+    results, each prediction's `output_digest` by file, every kernel's
+    launches, the seconds and the peak GB."""
+    import evaluate_torch
+    from uni_encoder_tpu_torch.engine.predictor import Predictor
+    from uni_encoder_tpu_torch.parallel import mesh
+
+    digests = {}
+    for name in ("infer_segmentation", "infer_sequence"):
+        def recorded(self, item, _run=getattr(Predictor, name)):
+            out = _run(self, item)
+            digests[item["file_name"]] = output_digest(out)
+            return out
+        setattr(Predictor, name, recorded)
+    wrappers = kernel_wrappers()
+    reset_launches(*wrappers.values())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = evaluate_torch.main(["--datasets-root", root, "--device", "cuda:0",
+                                   "--task", "panoptic", "datasets.depth_test=[cityscapes_crop_test]",
+                                   f"datasets.seg_test_panoptic=[{EVAL_SEG_SET}]"])
+    torch.cuda.synchronize()
+    return {"results": json.loads(json.dumps(results, default=float)), "digests": digests,
+            "launches": {key: f.launches for key, f in wrappers.items()}, "seconds": time.perf_counter() - t0,
+            "world": mesh.world(),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def multi_device_child(out_path, role, rendezvous, root):
+    """A child of phase multi_device, `role` train_rank<r> or train_nccl:
+    its training (`md_train_rank`, `md_train_nccl`), then in the same
+    process, its memory freed, its evaluation (`md_eval`: the training
+    ranks as the evaluation's ranks, in their gloo group; the nccl rank,
+    its group gone, as the one process); both saved to `out_path`."""
+    import gc
+
+    from uni_encoder_tpu_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if role.startswith("train_rank"):
+        result = {"train": md_train_rank(int(role[-1]), rendezvous)}
+    else:
+        result = {"train": md_train_nccl(rendezvous)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["eval"] = md_eval(root)
+    mesh.destroy_process_group()
+    torch.save(result, out_path)
+
+
+def metrics_differences(got, ref, path=""):
+    """Every scalar of two results trees with its absolute difference (NaN
+    against NaN counts as equal)."""
+    if isinstance(ref, dict):
+        if sorted(got) != sorted(ref):
+            raise AssertionError(f"{path}: keys {sorted(got)} against {sorted(ref)}")
+        return {k: v for key in ref for k, v in metrics_differences(got[key], ref[key], f"{path}/{key}").items()}
+    if isinstance(ref, (list, tuple)):
+        return {k: v for i, r in enumerate(ref) for k, v in metrics_differences(got[i], r, f"{path}[{i}]").items()}
+    g, r = float(got), float(ref)
+    return {path: 0.0 if (g == r or (np.isnan(g) and np.isnan(r))) else abs(g - r)}
+
+
+def start_multi_device():
+    """Start phase multi_device's three children (`MULTI_DEVICE_CHILD`) and
+    write its evaluation's synthetic tree: each child sets up its model,
+    states and batch and then waits for its group's go file, so that their
+    start-up overlaps the phases before it (a few GB of the card until
+    then). Returns what `multi_device_phase` needs."""
+    import tempfile
+
+    from uni_encoder_tpu_torch import kernels
+    from uni_encoder_tpu_torch.data import synthetic
+
+    t0 = time.perf_counter()
+    work = os.path.join(os.path.dirname(kernels.BUILD_DIR), "multi_device")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    root = tempfile.mkdtemp(dir=work)
+    synthetic.write_cityscapes_val(root, MD_EVAL_IMAGES, (SEG_H, SEG_W))
+    synthetic.write_cityscapes_sequence(root, MD_EVAL_IMAGES, (SEG_H, SEG_W))
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    children = {}
+    for role in [f"train_rank{r}" for r in range(MD_WORLD)] + ["train_nccl"]:
+        rendezvous = os.path.join(work, f"rendezvous_{role.rstrip('0123456789').replace('_rank', '')}")
+        path = os.path.join(work, f"{role}.pt")
+        children[role] = (start_child(MULTI_DEVICE_CHILD, path, role, rendezvous, root, env=env), path, rendezvous)
+        kill_at_exit(children[role][0])
+    return {"work": work, "children": children, "start_s": time.perf_counter() - t0}
+
+
+def multi_device_phase(dev, smi, started, meanwhile=lambda: None):
+    """Data-parallel training and sharded evaluation on the one card, in
+    three child processes (`MULTI_DEVICE_CHILD`) at once, each training and
+    then evaluating:
+    - MD_WORLD gloo ranks take MD_STEPS full-width Swin-T steps at local
+      batch 1 a modality (deterministic; gloo all-reduces the CUDA tensors
+      through the host); rank 0 holds each step against one process's at
+      the global batch 2 from the same state with the same draws and the
+      same discrete choices (pinned: on random weights the matching's costs
+      and the uncertain points' logits nearly tie, and the rank's own sums
+      would choose some otherwise: counted), within the CPU test's bounds or
+      twice that step's own difference from ulp-moved images
+      (`md_within_bounds`);
+      the ranks' states must have the same `fingerprints`, and K2 and K3 6
+      launches a rank a step, K1, K4 and K5 none;
+    - one nccl rank: a training rank's step (batch 1) in a group of one
+      equals the step without a group (byte for byte where the arithmetic
+      is the same, else within the same bounds), NCCL's all-reduce on the
+      card;
+    - `evaluate_torch`'s library path on MD_WORLD gloo ranks over a
+      synthetic Cityscapes tree (MD_EVAL_IMAGES val images and depth
+      frames, random weights from seed 0) against one process: each rank
+      evaluates its shard (K2 6 an image, no other kernel) and both return
+      the one process's metrics; each prediction's digest against the one
+      process's.
+    Two processes time-sharing one card through gloo's host path measure
+    no scaling: the per-rank step seconds, the collectives' share of them
+    and the peaks are what this layout costs. This process runs
+    `meanwhile()` while the children do."""
+    from uni_encoder_tpu_torch.config import Config
+
+    t_phase = time.perf_counter()
+    # three children at once (a batch-2 step holds ≈43 GB of the card): the
+    # training ranks, then the evaluation ranks in the same processes and
+    # group; the nccl rank, then the one-process evaluation
+    children, work = started["children"], started["work"]
+    for *_, rendezvous in children.values():
+        open(rendezvous + ".go", "w").close()
+    meanwhile()
+    roles = list(children)
+    done = dict(zip(roles, finish_children([children[r][0] for r in roles], [children[r][1] for r in roles],
+                                           timeout=600)))
+    loaded = {**{role: r["train"] for role, r in done.items()},
+              **{role.replace("train_", "eval_").replace("eval_nccl", "eval_one"): r["eval"]
+                 for role, r in done.items()}}
+    roles = list(loaded)
+
+    enc_layers = Config().model.sem_seg_head.transformer_enc_layers
+    ranks = [loaded[f"train_rank{r}"] for r in range(MD_WORLD)]
+    steps = ranks[0]["steps"]
+    nccl = loaded["train_nccl"]
+    evals = {role: loaded[role] for role in roles if role.startswith("eval")}
+    one = evals["eval_one"]
+    metric_diffs = {role: metrics_differences(e["results"], one["results"]) for role, e in evals.items()
+                    if role != "eval_one"}
+    shards = {role: sorted(e["digests"]) for role, e in evals.items() if role != "eval_one"}
+    same_predictions = {f: all(e["digests"].get(f) == d for e in evals.values() if f in e["digests"])
+                        for f, d in one["digests"].items()}
+    checks = {
+        "ranks_fingerprints_equal": all(ranks[0]["steps"][s]["fingerprints"] == ranks[1]["steps"][s]["fingerprints"]
+                                        for s in range(MD_STEPS)),
+        "local_batch_1": all(r["local_batch"] == TRAIN_BATCH // MD_WORLD for r in ranks),
+        "train_within_cpu_bounds": all(not md_within_bounds(st["errors"])[0] for st in steps),
+        "k2_k3_6_k1_k4_k5_0_per_rank_per_step": all(
+            st["launches"] == {"k1": 0, "k2": enc_layers, "k3": enc_layers, "k4": 0, "k5": 0}
+            for r in ranks for st in r["steps"]),
+        "nccl_backend": nccl["backend"] == "nccl" and nccl["collectives"]["calls"] > 0,
+        "nccl_within_cpu_bounds": not md_within_bounds(nccl["errors"])[0],
+        "eval_shards_cover_the_sets": sorted(f for fs in shards.values() for f in fs) == sorted(one["digests"])
+        and all(len(fs) == len(one["digests"]) // MD_WORLD for fs in shards.values()),
+        "eval_k2_6_per_image_others_0": all(
+            e["launches"] == {"k1": 0, "k2": enc_layers * MD_EVAL_IMAGES // e["world"], "k3": 0, "k4": 0, "k5": 0}
+            for e in evals.values()),
+        "eval_metrics_equal": all(d <= 1e-9 for diffs in metric_diffs.values() for d in diffs.values()),
+    }
+    per_rank = [{"step_s": [st["step_s"] for st in r["steps"]],
+                 "collectives_s": [st["collectives"]["s"] for st in r["steps"]],
+                 "gradient_all_reduce_s": [st["collectives"]["gradients_s"] for st in r["steps"]],
+                 "collective_calls": [st["collectives"]["calls"] for st in r["steps"]],
+                 "collectives_share": [st["collectives"]["s"] / st["step_s"] for st in r["steps"]],
+                 "peak_gb": [st["peak_gb"] for st in r["steps"]], "resident_gb": [st["resident_gb"] for st in r["steps"]],
+                 "launches": [st["launches"] for st in r["steps"]],
+                 "choices": [st["choices"] for st in r["steps"]]} for r in ranks]
+    emit("multi_device", world=MD_WORLD, backend_on_the_card="gloo", steps=MD_STEPS,
+         batch={"global": TRAIN_BATCH, "per_rank": TRAIN_BATCH // MD_WORLD}, dtype="float32", deterministic=True,
+         per_rank=per_rank, vs_one_process=[md_error_summary(st["errors"]) for st in steps],
+         one_process_spread=[md_error_summary(st["errors"]["spread"]) for st in steps],
+         nccl_one_rank={"vs_no_group": md_error_summary(nccl["errors"]), "collectives": nccl["collectives"],
+                        "peak_gb": nccl["peak_gb"]},
+         eval={"images_per_set": MD_EVAL_IMAGES, "seconds": {role: e["seconds"] for role, e in evals.items()},
+               "peak_gb": {role: e["peak_gb"] for role, e in evals.items()},
+               "launches": {role: e["launches"] for role, e in evals.items()},
+               "predictions_byte_equal": sum(same_predictions.values()), "predictions": len(same_predictions),
+               "metrics_max_abs_diff": {role: max(d.values()) for role, d in metric_diffs.items()},
+               "metrics_exactly_equal": {role: sum(v == 0 for v in d.values()) for role, d in metric_diffs.items()},
+               "metrics": len(next(iter(metric_diffs.values())))},
+         bounds={"loss_rtol": MD_LOSS_RTOL, "d_ground_rtol": MD_D_GROUND_RTOL, "grad_moment_rtol": MD_GRAD_RTOL,
+                 "bn_rtol": MD_BN_RTOL, "or_twice_the_ulp_spread": True,
+                 "param": f"lr * min({MD_UPDATE_GAIN} * (|dg / g| + |dc / c|) + 1e-5, {MD_PARAM_LRS}) + 2 ulp",
+                 "eval_metrics_atol": 1e-9},
+         within_bounds=[dict(zip(("past", "by_spread_alone"), md_within_bounds(st["errors"]))) for st in steps],
+         nccl_past_bounds=md_within_bounds(nccl["errors"])[0],
+         start_s=started["start_s"], checks=checks, seconds=time.perf_counter() - t_phase, card=smi,
+         note="two gloo ranks time-share one card through the host: no scaling is measured")
+    fail_unless("multi_device", checks)
+    shutil.rmtree(work, ignore_errors=True)
+    return {"train_per_rank_per_step": [r["steps"][-1]["launches"] for r in ranks],
+            "eval_per_rank": {role: e["launches"] for role, e in evals.items()}}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2535,11 +3233,15 @@ def main():
     torch.cuda.empty_cache()
 
     # ------------------------------------------------- K4 against its plain
-    results["k4"] = dict(k4_phase(dev, smi, k4_usage), stack_frame_bytes=max(k4_frames))
+    k4_fields, k4_compile = k4_phase(dev, smi, k4_usage)
+    results["k4"] = dict(k4_fields, stack_frame_bytes=max(k4_frames))
 
     # ------------------------------- K5, K4's backward, against its plain
-    results["k5"] = dict(k5_phase(dev, smi, k5_usage),
-                         stack_frame_bytes=max(u["stack_frame"] for u in k5_usage.values()))
+    k5_fields, k5_compile = k5_phase(dev, smi, k5_usage)
+    results["k5"] = dict(k5_fields, stack_frame_bytes=max(u["stack_frame"] for u in k5_usage.values()))
+    # their library yardsticks compile while this process waits for
+    # children below, K4's in train_deterministic, K5's in multi_device
+    yardsticks = {}
 
     # ------------------------------------------- serve three full-width requests
     cfg = Config().model
@@ -2950,7 +3652,8 @@ def main():
     torch.cuda.empty_cache()
     paths = [os.path.join(os.path.dirname(kernels.BUILD_DIR), f"train_deterministic_{i}.pt") for i in range(2)]
     dinat_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), BACKBONE_CONFIGS["dinat"])
-    deterministic, workspace = deterministic_children(paths, (DEFAULT_CONFIG, dinat_path))
+    deterministic, workspace = deterministic_children(
+        paths, (DEFAULT_CONFIG, dinat_path), meanwhile=lambda: yardsticks.update(k4=compile_yardstick(k4_compile)))
     children_s = time.perf_counter() - t0
     (runs, equal), dinat_deterministic = deterministic.pop(DEFAULT_CONFIG), deterministic.pop(dinat_path)
     # and a child's deterministic step against this process's default one:
@@ -2960,6 +3663,7 @@ def main():
     t1 = time.perf_counter()
     (swin_one_thread,) = finish_children([swin_noise_child], [swin_noise_path], timeout=600)
     noise_wait_s = time.perf_counter() - t1
+    yardsticks["k4"] = time_yardstick(yardsticks["k4"], torch.inference_mode)
     noise = (swin_one_thread["losses"], swin_one_thread["grads"])
     det = ({k: float(v) for k, v in runs[0]["losses"].items()}, runs[0]["grads"])
     cpu_steps = (noise, small["cpu"])
@@ -3014,11 +3718,24 @@ def main():
     # labels, read JPEG files and fill polygons)
     import tempfile
 
+    # phase multi_device's children set themselves up beside the next phases
+    multi_device = start_multi_device()
     with tempfile.TemporaryDirectory() as convert_root:
         converted = convert_phase(dev, smi, convert_root)
         demo_launches = demo_phase(dev, smi, kernel_fns, converted)
     torch.cuda.empty_cache()
     ade20k_eval_launches = eval_ade20k_phase(dev, smi, kernel_fns)
+    torch.cuda.empty_cache()
+
+    # ---------------- data-parallel training and sharded evaluation: ranks
+    # in child processes sharing the card
+    multi_device_launches = multi_device_phase(
+        dev, smi, multi_device, meanwhile=lambda: yardsticks.update(k5=compile_yardstick(k5_compile)))
+    yardsticks["k5"] = time_yardstick(yardsticks["k5"], functorch_patch(donated_buffer=False))
+    for key, fields in yardsticks.items():
+        results[key]["library_ms"] = fields.get("ms")
+    emit("library_yardsticks", at="stage 0, dilation 1", k4=yardsticks["k4"], k5=yardsticks["k5"],
+         compiled_during={"k4": "train_deterministic", "k5": "multi_device"}, card=smi)
 
     print(smi, flush=True)
     rows = []
@@ -3060,6 +3777,10 @@ def main():
                      "decoders_launches": {name: {kind: n[key] for kind, n in per.items()}
                                            for name, per in decoder_launches.items()},
                      "ade20k_eval_launches": {task: n[key] for task, n in ade20k_eval_launches.items()},
+                     "multi_device_launches": {
+                         "train_per_rank_per_step": [n[key] for n in multi_device_launches["train_per_rank_per_step"]],
+                         "eval_per_rank": {role: n[key]
+                                           for role, n in multi_device_launches["eval_per_rank"].items()}},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r.get("library_ms"),
@@ -3075,8 +3796,9 @@ def main():
 
 
 if __name__ == "__main__":
-    if len(sys.argv) >= 4 and sys.argv[1] in (DETERMINISTIC_CHILD, CPU_STEP_CHILD):
+    if len(sys.argv) >= 4 and sys.argv[1] in (DETERMINISTIC_CHILD, CPU_STEP_CHILD, MULTI_DEVICE_CHILD):
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-        (train_deterministic_child if sys.argv[1] == DETERMINISTIC_CHILD else cpu_step_child)(*sys.argv[2:])
+        {DETERMINISTIC_CHILD: train_deterministic_child, CPU_STEP_CHILD: cpu_step_child,
+         MULTI_DEVICE_CHILD: multi_device_child}[sys.argv[1]](*sys.argv[2:])
     else:
         main()

@@ -16,9 +16,20 @@ directory (`uni_encoder_tpu_torch/engine/checkpoint.py`); orbax directories
 of the JAX package are not read. The model runs on the GPU unless
 `--device cpu` is given; without a GPU and without that flag it raises.
 
+Sharded evaluation (the JAX evaluate.py on several processes): each rank of
+a torch.distributed group evaluates its contiguous shard of every dataset
+(`data/build.py::inference_shard`), and the evaluators' states are merged
+over the ranks before the metrics are computed, so every rank returns the
+dataset's metrics. `--num-devices N` starts the N ranks from this command
+(as train_torch.py does: one a card under nccl, gloo with `--device cpu`);
+under torchrun each process it starts is one rank; a caller that set a
+process group runs `main` on each of its ranks. Rank 0 alone logs the
+results and writes `--output`.
+
 Usage:
   python evaluate_torch.py --weights model.pth [--config cfg.yaml]
-      [--task panoptic] [--device cpu] [--datasets-root DIR] [opts a.b.c=v ...]
+      [--task panoptic] [--device cpu] [--datasets-root DIR] [--num-devices N]
+      [--output results.json] [opts a.b.c=v ...]
 """
 
 import argparse
@@ -130,12 +141,7 @@ def build_model(cfg, weights: Optional[str] = None, device=None) -> Tuple[torch.
     return model, report
 
 
-def main(argv: Optional[List[str]] = None, timings: Optional[List[Dict]] = None) -> Dict:
-    """Evaluate as the command line `argv` asks; returns {"seg_and_depth":
-    {"<dataset>/<metric group>": metrics}}. With `timings`, appends one
-    record per evaluated image: dataset, loader wait, predict and
-    evaluator-process seconds. The TF32 flags an fp32 model turns off are
-    restored on return."""
+def _parse(argv: Optional[List[str]]):
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default=None)
     ap.add_argument("--weights", default=None)
@@ -143,26 +149,64 @@ def main(argv: Optional[List[str]] = None, timings: Optional[List[Dict]] = None)
     ap.add_argument("--device", default=None, help="cpu, or a CUDA device (default: the GPU)")
     ap.add_argument("--datasets-root", default=None)
     ap.add_argument("--max-images", type=int, default=None, help="debug: cap per-dataset images")
+    ap.add_argument("--num-devices", type=int, default=None,
+                    help="ranks to evaluate on, one a card on CUDA (default 1, or torchrun's WORLD_SIZE)")
+    ap.add_argument("--output", default=None, help="write the results there as JSON (rank 0)")
     ap.add_argument("opts", nargs="*")
-    args = ap.parse_intermixed_args(argv)
+    return ap.parse_intermixed_args(argv)
 
+
+def main(argv: Optional[List[str]] = None, timings: Optional[List[Dict]] = None) -> Optional[Dict]:
+    """Evaluate as the command line `argv` asks; returns {"seg_and_depth":
+    {"<dataset>/<metric group>": metrics}} (on every rank of a process group
+    the caller set; None where this call started the ranks). With
+    `timings`, appends one record per image this rank evaluated: dataset,
+    loader wait, predict and evaluator-process seconds. The TF32 flags an
+    fp32 model turns off are restored on return."""
+    import tempfile
+
+    from uni_encoder_tpu_torch.parallel import launch
+
+    args = _parse(argv)
+    world = launch.command_world(args.num_devices)
+    with tempfile.TemporaryDirectory() as rendezvous:
+        return launch.run_command(lambda: _run(args, timings), _rank_main,
+                                  argv if argv is not None else sys.argv[1:], world, args.device, rendezvous)
+
+
+def _rank_main(argv: List[str]) -> None:
+    """One rank started by `main`, in the process group it set."""
+    if not logging.getLogger().handlers:
+        logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+    _run(_parse(argv), None)
+
+
+def _run(args, timings: Optional[List[Dict]]) -> Dict:
+    """The evaluation of one rank (of one, without a process group)."""
     from uni_encoder_tpu_torch.config import Config, load_config
     from uni_encoder_tpu_torch.device import resolve_device
+    from uni_encoder_tpu_torch.parallel import mesh
 
     cfg = load_config(args.config, args.opts) if (args.config or args.opts) else Config()
     if args.task:
         cfg = dataclasses.replace(
             cfg, model=dataclasses.replace(cfg.model, test=dataclasses.replace(cfg.model.test, task=args.task))
         )
-    device = resolve_device(args.device)
+    device = mesh.rank_device(mesh.local_rank(), args.device) if mesh.active() else resolve_device(args.device)
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     if cfg.model.dtype == "float32":  # evaluate.py:122-123: full fp32 matmuls
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     try:
-        return _evaluate(cfg, args, device, timings)
+        results = _evaluate(cfg, args, device, timings)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    if args.output and mesh.rank() == 0:
+        import json
+
+        with open(args.output, "w") as f:
+            json.dump(results, f, indent=1, default=float)
+    return results
 
 
 def _evaluate(cfg, args, device, timings: Optional[List[Dict]]) -> Dict:
@@ -172,6 +216,7 @@ def _evaluate(cfg, args, device, timings: Optional[List[Dict]]) -> Dict:
     from uni_encoder_tpu_torch.data.mappers import TestMapper
     from uni_encoder_tpu_torch.engine.predictor import Predictor
     from uni_encoder_tpu_torch.evaluation.evaluator import inference_on_dataset
+    from uni_encoder_tpu_torch.parallel import mesh
 
     task = cfg.model.test.task
     dataset_registry.register_all(args.datasets_root)
@@ -197,12 +242,10 @@ def _evaluate(cfg, args, device, timings: Optional[List[Dict]]) -> Dict:
             task_seq_len=cfg.input.task_seq_len,
         )
         try:
-            loader = build_test_loader(name, mapper)
+            loader = build_test_loader(name, mapper, mesh.rank(), mesh.world(), limit=args.max_images)
         except (FileNotFoundError, KeyError) as e:
             logger.warning(f"skipping {name}: {e}")
             continue
-        if args.max_images:
-            loader.items = loader.items[: args.max_images]
         if not is_depth:
             thing_ids = sorted(meta.get("thing_dataset_id_to_contiguous_id", {}).values())
             predictor.set_thing_ids(thing_ids, dataset_name=name)
@@ -219,7 +262,8 @@ def _evaluate(cfg, args, device, timings: Optional[List[Dict]]) -> Dict:
             )
         else:
             run = predictor.infer_segmentation
-        logger.info(f"evaluating {name} ({len(loader)} images, task={task}, device={device})")
+        logger.info(f"evaluating {name} ({len(loader)} images on rank {mesh.rank()} of {mesh.world()}, "
+                    f"task={task}, device={device})")
         per_image = [] if timings is not None else None
         results[name] = inference_on_dataset(run, loader, build_evaluator(name, task), per_image)
         if timings is not None:
@@ -229,9 +273,10 @@ def _evaluate(cfg, args, device, timings: Optional[List[Dict]]) -> Dict:
     for name, r in results.items():
         for k, v in r.items():
             merged["seg_and_depth"][f"{name}/{k}"] = v
-    logger.info("==== results ====")
-    for k, v in merged["seg_and_depth"].items():
-        logger.info(f"{k}: {v}")
+    if mesh.rank() == 0:
+        logger.info("==== results ====")
+        for k, v in merged["seg_and_depth"].items():
+            logger.info(f"{k}: {v}")
     return merged
 
 

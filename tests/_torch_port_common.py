@@ -195,6 +195,8 @@ def t(x):
 def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
@@ -212,10 +214,11 @@ def micro_config(C):
     return C.Config(model=model, input=C.InputConfig(task_seq_len=16, max_seq_len=16))
 
 
-def micro_batches():
-    """tests/test_train_step.py's batches, as numpy arrays."""
+def micro_batches(size: int = 32):
+    """tests/test_train_step.py's batches, as numpy arrays (at `size` x
+    `size` pixels: 32 there)."""
     rng = np.random.RandomState(0)
-    B, H, W, N = 2, 32, 32, 2
+    B, H, W, N = 2, size, size, 2
     seg = {"images": rng.randn(B, H, W, 3).astype(np.float32), "task_tokens": np.ones((B, 16), np.int64),
            "text_tokens": np.ones((B, 6, 16), np.int64), "labels": rng.randint(0, 19, (B, N)),
            "masks": rng.rand(B, N, H // 4, W // 4) > 0.5, "valid": np.ones((B, N), bool)}

@@ -99,8 +99,9 @@ def test_source_scan_finds_no_module_level_pil_or_cv2_import():
 
 def test_walk_covers_the_training_modules():
     """The import check above walks the training slice's modules too (the
-    training package, the text encoder, the backward kernel's source), and
-    the evaluation path's (checkpoints, data, evaluators, host helpers)."""
+    training package, the text encoder, the backward kernel's source), the
+    evaluation path's (checkpoints, data, evaluators, host helpers) and the
+    data-parallel ones (`parallel/`, the profiling helpers)."""
     import pkgutil
 
     import uni_encoder_tpu_torch as port
@@ -110,7 +111,7 @@ def test_walk_covers_the_training_modules():
                 "models.text_transformer", "ops.ms_deform_attn", "engine.convert", "engine.checkpoint",
                 "engine.tta", "data.image_io", "data.mappers", "data.build", "data.datasets.kitti",
                 "evaluation.cityscapes", "evaluation.kitti", "native", "data.train_mappers", "data.color",
-                "engine.events"):
+                "engine.events", "parallel.mesh", "parallel.launch", "utils.profiling"):
         assert f"uni_encoder_tpu_torch.{mod}" in names, mod
     assert os.path.exists(os.path.join(PORT, "kernels", "csrc", "ms_deform_attn_backward.cu"))
 

@@ -334,10 +334,13 @@ def test_train_entry_point_on_cpu(tree, tmp_path, monkeypatch):
 
 
 def test_train_entry_point_refuses_what_is_not_ported(tree, tmp_path):
+    """What the entry point refuses before it starts: a global batch that
+    does not divide over the ranks (`--num-devices` above 1 is ported:
+    tests/test_torch_port_parallel.py), and a GPU run without a GPU."""
     import train_torch
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        train_torch.main(["--num-devices", "2", "--device", "cpu", "--datasets-root", tree])
+    with pytest.raises(ValueError, match="--batch 3 .* does not divide over 2 ranks"):
+        train_torch.main(["--num-devices", "2", "--batch", "3", "--device", "cpu", "--datasets-root", tree])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_torch.main(["--datasets-root", tree, "--output-dir", str(tmp_path)])

@@ -22,12 +22,28 @@ As in train.py:
 The step's random draws come from one `torch.Generator` on the device,
 seeded 0 (train.py draws `PRNGKey(it)`; the streams cannot match JAX's).
 The model runs on the GPU unless `--device cpu` is given; without a GPU and
-without that flag it raises. One device only: `--num-devices` above 1
-raises (data parallelism is ROADMAP Queue 1 item 8).
+without that flag it raises.
+
+Data parallelism (train.py's `--num-devices`): `--num-devices N` starts N
+ranks from this one command (`parallel/launch.py`: processes started with
+the `spawn` context, a `file://` rendezvous under `--output-dir`); under
+torchrun, which sets RANK / WORLD_SIZE / LOCAL_RANK, each process it starts
+is one rank. On CUDA a rank runs on its own card under nccl (N above the
+cards visible raises); with `--device cpu` the ranks use gloo. `--batch`
+stays the global batch per modality and must divide by N. Every rank runs
+the same sampler and mappers and maps only its rows of each global batch
+(it advances the mappers' random streams past the others' rows, reading
+only their headers), so with the same seeds N ranks train on the batches
+of one process; the step is the one-device step at the global batch
+(`training/train_step.py`). Rank 0 alone writes the events and the
+checkpoints. A rank that fails stops the others and the command exits
+non-zero. A missing file is dropped by every rank alike; a file that exists
+but cannot be read stops a run of N ranks (one process drops it).
 
 Usage:
   python train_torch.py --config configs/cityscapes_swin_unified.yaml \\
-      --output-dir runs/exp1 [--max-iter 1000] [--batch 2] [--device cpu] [opts a.b.c=v ...]
+      --output-dir runs/exp1 [--max-iter 1000] [--batch 2] [--device cpu] [--num-devices N] [opts a.b.c=v ...]
+  torchrun --nproc-per-node N train_torch.py --config ... [--batch B]
 """
 
 import argparse
@@ -73,31 +89,63 @@ def batch_to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[
     return out
 
 
-def main(argv: Optional[List[str]] = None, timings: Optional[List[Dict]] = None):
-    """Train as the command line `argv` asks; returns the final TrainState.
-    With `timings`, each step is fenced by device synchronisation and one
-    record per iteration is appended: host seconds of the batch (`data_s`),
-    of the step (`step_s`) and of the checkpoint written after it
-    (`checkpoint_s`, 0 without one), and on CUDA the peak of allocated
-    device memory since the previous record (`peak_gb`; the first counts
-    from the caller's last reset, so it holds the model's initialisation
-    and cuDNN's benchmarking of a first step), the count reset after
-    each."""
+def _parse(argv: Optional[List[str]]):
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default=None)
     ap.add_argument("--output-dir", default="runs/default")
     ap.add_argument("--max-iter", type=int, default=None)
-    ap.add_argument("--batch", type=int, default=None, help="override ims_per_batch")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="override ims_per_batch: the global batch per modality, divided over the ranks")
     ap.add_argument("--datasets-root", default=None)
     ap.add_argument("--checkpoint-period", type=int, default=5000)
     ap.add_argument("--log-period", type=int, default=20)
     ap.add_argument("--num-devices", type=int, default=None,
-                    help="devices to train on; only 1 is ported (data parallelism is not)")
+                    help="ranks to train on, one a card on CUDA (default 1, or torchrun's WORLD_SIZE)")
     ap.add_argument("--device", default=None, help="cpu, or a CUDA device (default: the GPU)")
     ap.add_argument("opts", nargs="*")
-    args = ap.parse_intermixed_args(argv)
+    return ap.parse_intermixed_args(argv)
 
+
+def _config(args):
+    """The Config, and the global batch per modality."""
     from uni_encoder_tpu_torch.config import Config, load_config
+
+    cfg = load_config(args.config, args.opts) if (args.config or args.opts) else Config()
+    return cfg, args.batch or max(2, cfg.solver.ims_per_batch // 2)
+
+
+def main(argv: Optional[List[str]] = None, timings: Optional[List[Dict]] = None):
+    """Train as the command line `argv` asks; returns the final TrainState
+    (this rank's, in a process group the caller set; None where this call
+    started the ranks). With `timings`, each step is fenced by device
+    synchronisation and one record per iteration is appended: host seconds
+    of the batch (`data_s`), of the step (`step_s`) and of the checkpoint
+    written after it (`checkpoint_s`, 0 without one), and on CUDA the peak
+    of allocated device memory since the previous record (`peak_gb`; the
+    first counts from the caller's last reset, so it holds the model's
+    initialisation and cuDNN's benchmarking of a first step), the count
+    reset after each."""
+    from uni_encoder_tpu_torch.parallel import launch, mesh
+
+    args = _parse(argv)
+    cfg, batch = _config(args)
+    world = launch.command_world(args.num_devices)
+    mesh.check_divides(batch, world)
+    return launch.run_command(lambda: _train(args, cfg, batch, timings), _rank_main,
+                              argv if argv is not None else sys.argv[1:], world, args.device, args.output_dir)
+
+
+def _rank_main(argv: List[str]) -> None:
+    """One rank started by `main`, in the process group it set."""
+    if not logging.getLogger().handlers:
+        logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+    args = _parse(argv)
+    cfg, batch = _config(args)
+    _train(args, cfg, batch, None)
+
+
+def _train(args, cfg, batch: int, timings: Optional[List[Dict]]):
+    """The training loop of one rank (of one, without a process group)."""
     from uni_encoder_tpu_torch.data import datasets as dataset_registry
     from uni_encoder_tpu_torch.data.catalog import DatasetCatalog
     from uni_encoder_tpu_torch.data.train_mappers import BalancedSampler, build_train_mappers
@@ -109,15 +157,14 @@ def main(argv: Optional[List[str]] = None, timings: Optional[List[Dict]] = None)
         JSONWriter,
         MLflowWriter,
     )
+    from uni_encoder_tpu_torch.parallel import mesh
     from uni_encoder_tpu_torch.training.train_step import Trainer
 
-    if args.num_devices is not None and args.num_devices > 1:
-        raise NotImplementedError(f"--num-devices {args.num_devices}: training on more than one device is not "
-                                  "ported yet (ROADMAP Queue 1 item 8: data-parallel training with DDP)")
-    device = resolve_device(args.device)
-    cfg = load_config(args.config, args.opts) if (args.config or args.opts) else Config()
+    rank, world = mesh.rank(), mesh.world()
+    device = mesh.rank_device(mesh.local_rank(), args.device) if mesh.active() else resolve_device(args.device)
     max_iter = args.max_iter or cfg.solver.max_iter
-    batch = args.batch or max(2, cfg.solver.ims_per_batch // 2)  # per modality
+    local = mesh.check_divides(batch, world)
+    mine = range(rank * local, (rank + 1) * local)  # this rank's rows of each global batch
 
     dataset_registry.register_all(args.datasets_root)
     seg_items = []
@@ -144,20 +191,34 @@ def main(argv: Optional[List[str]] = None, timings: Optional[List[Dict]] = None)
     sampler = iter(BalancedSampler(seg_items, seq_items))
 
     def next_batches():
+        """This rank's rows of the next global batch: the items at its
+        positions mapped, the others skipped (their random numbers drawn)."""
         seg, seq = [], []
-        while len(seg) < batch or len(seq) < batch:
+        taken = {"segmentation": 0, "sequence": 0}
+        while taken["segmentation"] < batch or taken["sequence"] < batch:
             kind, item = next(sampler)
+            if taken[kind] >= batch:
+                continue
+            out, mapper = (seg, seg_mapper) if kind == "segmentation" else (seq, seq_mapper)
             try:
-                if kind == "segmentation" and len(seg) < batch:
-                    seg.append(seg_mapper(item))
-                elif kind == "sequence" and len(seq) < batch:
-                    seq.append(seq_mapper(item))
-            except (FileNotFoundError, OSError) as e:
+                if taken[kind] in mine:
+                    out.append(mapper(item))
+                else:
+                    mapper.skip(item)
+                taken[kind] += 1
+            except FileNotFoundError as e:  # every rank drops it: `skip` stats each file
+                logger.warning(f"skipping missing item: {e}")
+            except OSError as e:
+                # only the rank that maps the item reads it whole: were it
+                # dropped there alone, the ranks' batches would drift apart
+                if world > 1:
+                    raise RuntimeError(f"rank {rank} of {world}: cannot read a {kind} item ({e}); a data-parallel "
+                                       f"run stops here: fix or remove the file") from e
                 logger.warning(f"skipping unreadable item: {e}")
         return stack_batch(seg), stack_batch(seq)
 
-    trainer = Trainer(cfg, device=device)
     next_batches()  # train.py's init batch (see the module docstring)
+    trainer = Trainer(cfg, device=device)
     state = trainer.init(seed=0)
     generator = torch.Generator(device=device).manual_seed(0)
 
@@ -166,7 +227,7 @@ def main(argv: Optional[List[str]] = None, timings: Optional[List[Dict]] = None)
         CommonMetricPrinter(max_iter),
         JSONWriter(os.path.join(args.output_dir, "metrics.json")),
         MLflowWriter(args.output_dir, args.checkpoint_period),
-    ]
+    ] if rank == 0 else []
     sync = torch.cuda.synchronize if (timings is not None and device.type == "cuda") else (lambda: None)
 
     try:
@@ -185,7 +246,7 @@ def main(argv: Optional[List[str]] = None, timings: Optional[List[Dict]] = None)
             sync()
             step_s = time.perf_counter() - ts
 
-            if (it + 1) % args.log_period == 0:
+            if (it + 1) % args.log_period == 0 and writers:
                 # one host read per logging period
                 values = torch.stack([metrics[k].float() for k in METRICS]).tolist()
                 elapsed = time.perf_counter() - t0
@@ -195,7 +256,7 @@ def main(argv: Optional[List[str]] = None, timings: Optional[List[Dict]] = None)
                     wr.write(storage)
                 t_data, t0 = 0.0, time.perf_counter()
             checkpoint_s = 0.0
-            if (it + 1) % args.checkpoint_period == 0 or it + 1 == max_iter:
+            if rank == 0 and ((it + 1) % args.checkpoint_period == 0 or it + 1 == max_iter):
                 tc = time.perf_counter()
                 ckpt.save_checkpoint(args.output_dir, state.model, step=it + 1)
                 checkpoint_s = time.perf_counter() - tc

@@ -1,18 +1,19 @@
 """Test data loader (the port's own copy of `uni_encoder_tpu/data/build.py`).
 
 Capability spec: reference model/data/build.py (:30-121): dataset dicts
-without empty-annotation filtering, batch size 1, trivial collation. The
-port evaluates in one process, so there is no per-rank sampler yet
-(torch.distributed waits for ROADMAP Queue 1 item 8). Loading overlaps
-compute through a bounded thread prefetcher: the threads run the mapper
-(file reads, PNG decoding, resizes) on the host only; the caller's thread
-is the one that uses the card.
+without empty-annotation filtering, an InferenceSampler that splits the
+evaluation set over the ranks into contiguous shards (`inference_shard`;
+a rank is a process of the torch.distributed group, `parallel/mesh.py`),
+batch size 1, trivial collation. Loading overlaps compute through a bounded
+thread prefetcher: the threads run the mapper (file reads, PNG decoding,
+resizes) on the host only; the caller's thread is the one that uses the
+card.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
-from typing import Callable, Iterator, List
+from typing import Callable, Iterator, List, Optional
 
 from .catalog import DatasetCatalog
 
@@ -21,8 +22,20 @@ from .catalog import DatasetCatalog
 PREFETCH = 4
 
 
-def build_test_loader(dataset_name: str, mapper: Callable) -> "PrefetchLoader":
-    return PrefetchLoader(list(DatasetCatalog.get(dataset_name)), mapper)
+def inference_shard(n: int, rank: int, world: int) -> range:
+    """The items of rank `rank` of `world` among `n`: a contiguous shard of
+    ceil(n / world) items (fewer for the last ranks; d2's InferenceSampler)."""
+    shard = -(-n // world)
+    begin = min(shard * rank, n)
+    return range(begin, min(begin + shard, n))
+
+
+def build_test_loader(dataset_name: str, mapper: Callable, rank: int = 0, world: int = 1,
+                      limit: Optional[int] = None) -> "PrefetchLoader":
+    """The loader of rank `rank` of `world` over `dataset_name` (its first
+    `limit` items with a limit): its shard."""
+    dicts = DatasetCatalog.get(dataset_name)[:limit]
+    return PrefetchLoader([dicts[i] for i in inference_shard(len(dicts), rank, world)], mapper)
 
 
 class PrefetchLoader:

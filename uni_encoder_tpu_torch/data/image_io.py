@@ -150,6 +150,24 @@ def _to_rgb(arr: np.ndarray, palette: Optional[np.ndarray]) -> np.ndarray:
     return np.ascontiguousarray(arr[:, :, :3])
 
 
+def image_size(path: str) -> Tuple[int, int]:
+    """(height, width) of an image file, from its header: a PNG file's IHDR,
+    or PIL's reading of a JPEG file's markers."""
+    if path.lower().endswith((".jpg", ".jpeg")):
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise ImportError(f"reading {path} needs PIL (Pillow) for JPEG decoding") from e
+        with Image.open(path) as im:
+            return im.height, im.width
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != PNG_SIGNATURE or head[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file")
+    width, height = struct.unpack(">II", head[16:24])
+    return height, width
+
+
 def read_image(path: str, resize_wh: Optional[Tuple[int, int]] = None) -> np.ndarray:
     """RGB uint8 (H, W, 3); optionally resized to (w, h) by `resize_lanczos`
     (`data/mappers.py::read_image`)."""

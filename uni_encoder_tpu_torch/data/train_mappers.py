@@ -32,9 +32,10 @@ decode_resize, jitter, intrinsics), which a caller may reset and read.
 from __future__ import annotations
 
 import json
+import os
 import time
 from collections import defaultdict
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -42,7 +43,7 @@ from ..config import SEG_MIN_SIZES_TRAIN
 from ..native import decode_panoptic_ids, resize_bilinear_u8
 from .cityscapes_labels import CLASS_NAMES, NUM_CLASSES, THING_TRAIN_IDS
 from .color import hsv_to_rgb, rgb_to_hsv
-from .image_io import read_image, resize_bilinear, resize_nearest
+from .image_io import image_size, read_image, resize_bilinear, resize_nearest
 from .mappers import intrinsics_from_camera_json
 from .tokenizer import tokenize_task
 
@@ -61,27 +62,45 @@ class _Stages:
 
 
 # ----------------------------------------------------------------- augmenters
-def color_aug_ssd(rng: np.random.RandomState, img: np.ndarray) -> np.ndarray:
-    """SSD photometric distortion (d2 ColorAugSSDTransform defaults:
-    brightness delta 32, contrast/saturation [0.5, 1.5], hue delta 18)."""
-    img = img.astype(np.float32)
-    if rng.randint(2):
-        img += rng.uniform(-32, 32)
-    if rng.randint(2):
-        img *= rng.uniform(0.5, 1.5)
-    # saturation / hue in HSV — each an independent 1/2-probability coin,
-    # drawn unconditionally so RNG stream consumption is order-independent
-    # (matches d2 ColorAugSSDTransform semantics)
+def color_aug_ssd_draws(rng: np.random.RandomState) -> Tuple[Optional[float], ...]:
+    """The random numbers of one `color_aug_ssd`, in its order: the
+    brightness delta, the contrast, the saturation and the hue delta, each
+    None where its 1/2-probability coin says no. The saturation and hue
+    coins are both drawn before either value, so the stream's consumption
+    does not depend on which applies (d2 ColorAugSSDTransform semantics)."""
+    delta = rng.uniform(-32, 32) if rng.randint(2) else None
+    alpha = rng.uniform(0.5, 1.5) if rng.randint(2) else None
     do_sat = bool(rng.randint(2))
     do_hue = bool(rng.randint(2))
-    if do_sat or do_hue:
+    sat = rng.uniform(0.5, 1.5) if do_sat else None
+    hue = rng.uniform(-18, 18) if do_hue else None
+    return delta, alpha, sat, hue
+
+
+def apply_color_aug_ssd(img: np.ndarray, draws: Tuple[Optional[float], ...]) -> np.ndarray:
+    """SSD photometric distortion with `color_aug_ssd_draws`' numbers (d2
+    ColorAugSSDTransform defaults: brightness delta 32, contrast/saturation
+    [0.5, 1.5], hue delta 18)."""
+    delta, alpha, sat, hue = draws
+    img = img.astype(np.float32)
+    if delta is not None:
+        img += delta
+    if alpha is not None:
+        img *= alpha
+    # saturation / hue in HSV
+    if sat is not None or hue is not None:
         hsv = rgb_to_hsv(np.clip(img, 0, 255).astype(np.uint8)).astype(np.float32)
-        if do_sat:
-            hsv[..., 1] *= rng.uniform(0.5, 1.5)
-        if do_hue:
-            hsv[..., 0] = (hsv[..., 0] + rng.uniform(-18, 18)) % 180
+        if sat is not None:
+            hsv[..., 1] *= sat
+        if hue is not None:
+            hsv[..., 0] = (hsv[..., 0] + hue) % 180
         img = hsv_to_rgb(np.clip(hsv, 0, 255).astype(np.uint8)).astype(np.float32)
     return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def color_aug_ssd(rng: np.random.RandomState, img: np.ndarray) -> np.ndarray:
+    """SSD photometric distortion of `img`, its numbers drawn from `rng`."""
+    return apply_color_aug_ssd(img, color_aug_ssd_draws(rng))
 
 
 def _resize(img: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
@@ -115,25 +134,47 @@ class SegmentationTrainMapper(_Stages):
         self.num_texts = num_texts
         self.rng = np.random.RandomState(seed)
 
-    def __call__(self, item: Dict) -> Dict:
+    def _draws(self, h: int, w: int) -> Dict:
+        """The random numbers of one item of (h, w) pixels, in the order
+        the reference draws them: the resize's shortest edge (and the size
+        it gives), the flip, the crop's corner, the color augmentation and
+        the task."""
         rng = self.rng
-        t = time.perf_counter()
-        image = read_image(item["file_name"])
-        pan_ids = decode_panoptic_ids(read_image(item["pan_seg_file_name"]))
-        t = self.lap("decode", t)
-
         # resize shortest edge (choice) capped by max_size
-        h, w = image.shape[:2]
         min_size = self.min_sizes[rng.randint(len(self.min_sizes))]
         scale = min_size / min(h, w)
         if max(h, w) * scale > self.max_size:
             scale = self.max_size / max(h, w)
         nh, nw = int(h * scale + 0.5), int(w * scale + 0.5)
+        flip = bool(rng.randint(2))
+        # the crop's corner in the image padded to at least the crop
+        ch, cw = self.crop_size
+        y0 = rng.randint(max(nh, ch) - ch + 1)
+        x0 = rng.randint(max(nw, cw) - cw + 1)
+        color = color_aug_ssd_draws(rng) if self.color_aug else None
+        return {"hw": (nh, nw), "flip": flip, "corner": (y0, x0), "color": color, "task": rng.rand()}
+
+    def skip(self, item: Dict) -> None:
+        """Advance the random stream past `item` as mapping it would, reading
+        only the image's header: a rank of a data-parallel run maps only its
+        rows of each global batch and skips the others' (it raises, as
+        mapping does, where a file is missing)."""
+        os.stat(item["pan_seg_file_name"])
+        self._draws(*image_size(item["file_name"]))
+
+    def __call__(self, item: Dict) -> Dict:
+        t = time.perf_counter()
+        image = read_image(item["file_name"])
+        pan_ids = decode_panoptic_ids(read_image(item["pan_seg_file_name"]))
+        t = self.lap("decode", t)
+
+        d = self._draws(*image.shape[:2])
+        nh, nw = d["hw"]
         image = _resize(image, (nh, nw))
         pan_ids = resize_nearest(pan_ids.astype(np.int32), (nh, nw))
 
         # random flip
-        if rng.randint(2):
+        if d["flip"]:
             image = image[:, ::-1]
             pan_ids = pan_ids[:, ::-1]
 
@@ -143,19 +184,17 @@ class SegmentationTrainMapper(_Stages):
             pad_h, pad_w = max(0, ch - nh), max(0, cw - nw)
             image = np.pad(image, ((0, pad_h), (0, pad_w), (0, 0)), constant_values=128)
             pan_ids = np.pad(pan_ids, ((0, pad_h), (0, pad_w)), constant_values=0)
-            nh, nw = image.shape[:2]
-        y0 = rng.randint(nh - ch + 1)
-        x0 = rng.randint(nw - cw + 1)
+        y0, x0 = d["corner"]
         image = np.ascontiguousarray(image[y0 : y0 + ch, x0 : x0 + cw])
         pan_ids = np.ascontiguousarray(pan_ids[y0 : y0 + ch, x0 : x0 + cw])
         t = self.lap("resize", t)
 
         if self.color_aug:
-            image = color_aug_ssd(rng, image)
+            image = apply_color_aug_ssd(image, d["color"])
         t = self.lap("hsv", t)
 
         # task sampling (reference TASK_PROB semantics)
-        p = rng.rand()
+        p = d["task"]
         if p < self.p_sem:
             task = "semantic"
         elif p < self.p_inst:
@@ -253,6 +292,18 @@ class SequenceTrainMapper(_Stages):
         hsv[..., 0] = (hsv[..., 0] + p["hue"] * 180) % 180
         return hsv_to_rgb(np.clip(hsv, 0, 255).astype(np.uint8))
 
+    def _draws(self) -> Tuple[bool, Optional[Dict]]:
+        """The random numbers of one item: the flip, then the jitter's."""
+        flip = bool(self.rng.randint(2))
+        return flip, (self._jitter_params() if self.color_jitter else None)
+
+    def skip(self, item: Dict) -> None:
+        """Advance the random stream past `item` as mapping it would, without
+        reading it (see `SegmentationTrainMapper.skip`)."""
+        for key in ("file_name", "left_prev_image_file", "left_nxt_image_file"):
+            os.stat(item[key])
+        self._draws()
+
     def __call__(self, item: Dict) -> Dict:
         h, w = self.hw
         t = time.perf_counter()
@@ -261,7 +312,7 @@ class SequenceTrainMapper(_Stages):
         nxt = read_image(item["left_nxt_image_file"], (w, h))
         t = self.lap("decode_resize", t)
 
-        flip = bool(self.rng.randint(2))
+        flip, p = self._draws()
         if flip:
             cur, prev, nxt = cur[:, ::-1], prev[:, ::-1], nxt[:, ::-1]
 
@@ -273,7 +324,6 @@ class SequenceTrainMapper(_Stages):
             "orig_next_images": np.ascontiguousarray(nxt),
         }
         if self.color_jitter:
-            p = self._jitter_params()
             cur, prev, nxt = (self._apply_jitter(x, p) for x in (cur, prev, nxt))
         out.update(
             images=np.ascontiguousarray(cur),

@@ -18,6 +18,7 @@ arithmetic in numpy.
 from __future__ import annotations
 
 import logging
+from collections import defaultdict
 from typing import List
 
 import numpy as np
@@ -104,6 +105,12 @@ class CityscapesSemSegEvaluator(DatasetEvaluator):
                 pred = resize_nearest(pred.astype(np.uint8), gt.shape)
             self.cm.update(gt, pred)
 
+    def state(self):
+        return self.cm.mat
+
+    def merge_state(self, states):
+        self.cm.mat = np.sum(states, axis=0)
+
     def evaluate(self):
         miou, iou = self.cm.miou()
         return {"sem_seg": {"mIoU": 100 * miou, "IoU": (100 * iou).tolist()}}
@@ -141,6 +148,15 @@ class CityscapesPanopticEvaluator(DatasetEvaluator):
             if gt_seg.shape != pan_seg.shape:
                 pan_seg = resize_nearest(pan_seg.astype(np.int32), gt_seg.shape)
             self.stat.update(pan_seg, pred_info, gt_seg, gt_info)
+
+    def state(self):
+        return (self.stat.iou, self.stat.tp, self.stat.fp, self.stat.fn)
+
+    def merge_state(self, states):
+        self.stat.iou = sum(s[0] for s in states)
+        self.stat.tp = sum(s[1] for s in states)
+        self.stat.fp = sum(s[2] for s in states)
+        self.stat.fn = sum(s[3] for s in states)
 
     def evaluate(self):
         return {"panoptic_seg": self.stat.summarize(self.thing_ids, self.stuff_ids)}
@@ -201,6 +217,19 @@ class CityscapesInstanceEvaluator(DatasetEvaluator):
                 pred_masks = [resize_nearest(m.astype(np.uint8), gt_masks[0].shape) > 0 for m in pred_masks]
             self.acc.update(pred_masks, pred_classes, pred_scores, gt_masks, gt_classes, gt_crowd)
 
+    def state(self):
+        return (dict(self.acc.entries), self.acc.n_gt)
+
+    def merge_state(self, states):
+        merged = defaultdict(list)
+        n_gt = 0
+        for entries, n in states:
+            for c, es in entries.items():
+                merged[c].extend(es)
+            n_gt = n_gt + n
+        self.acc.entries = merged
+        self.acc.n_gt = n_gt
+
     def evaluate(self):
         return {"segm": self.acc.summarize()}
 
@@ -242,6 +271,12 @@ class CityscapesDepthEvaluator(DatasetEvaluator):
             ratio = np.median(depth_gt) / np.median(depth_pred)
             depth_pred = np.clip(depth_pred * ratio, self.MIN_DEPTH, self.MAX_DEPTH)
             self.metrics.append(_depth_errors(depth_gt, depth_pred))
+
+    def state(self):
+        return self.metrics
+
+    def merge_state(self, states):
+        self.metrics = [m for shard in states for m in shard]
 
     def evaluate(self):
         m = np.mean(np.stack(self.metrics), axis=0)

@@ -3,9 +3,13 @@
 
 Capability spec: reference model/evaluation/evaluator.py (:19-228):
 DatasetEvaluator with reset/process/evaluate, the DatasetEvaluators
-fan-out, and an inference loop with periodic ETA logging. The port
-evaluates in one process, so nothing merges the states of other shards
-yet (torch.distributed waits for ROADMAP Queue 1 item 8).
+fan-out, and an inference loop with periodic ETA logging. Distribution: in
+a torch.distributed process group (`parallel/mesh.py`) each rank evaluates
+its shard of the dataset (`data/build.py::inference_shard`), and
+`inference_on_dataset` gathers every evaluator's accumulated state from
+all ranks (`allgather_object`) and merges them before summarizing, so every
+rank reports the dataset-level metrics (the reference gathers per-rank
+state with comm.gather).
 """
 
 from __future__ import annotations
@@ -13,9 +17,24 @@ from __future__ import annotations
 import datetime
 import logging
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 logger = logging.getLogger(__name__)
+
+
+def allgather_object(obj: Any) -> List[Any]:
+    """Every rank's picklable `obj`, in rank order
+    (`torch.distributed.all_gather_object`); `[obj]` without a process
+    group."""
+    from ..parallel import mesh
+
+    if not mesh.active():
+        return [obj]
+    import torch.distributed as dist
+
+    out: List[Any] = [None] * mesh.world()
+    dist.all_gather_object(out, obj)
+    return out
 
 
 class DatasetEvaluator:
@@ -27,6 +46,24 @@ class DatasetEvaluator:
 
     def evaluate(self) -> Optional[Dict]:
         pass
+
+    # ------------------------------------------------- sharded evaluation
+    def state(self) -> Any:
+        """The picklable accumulated state (each concrete evaluator's)."""
+        raise NotImplementedError(type(self).__name__)
+
+    def merge_state(self, states: List[Any]) -> None:
+        """Replace this evaluator's state by the union of the shards'
+        `states` (its own among them), in rank order."""
+        raise NotImplementedError(type(self).__name__)
+
+    def merge_across_processes(self) -> None:
+        """Merge every rank's state into each rank's (nothing without a
+        process group)."""
+        from ..parallel import mesh
+
+        if mesh.active():
+            self.merge_state(allgather_object(self.state()))
 
 
 class DatasetEvaluators(DatasetEvaluator):
@@ -40,6 +77,13 @@ class DatasetEvaluators(DatasetEvaluator):
     def process(self, inputs, outputs):
         for e in self._evaluators:
             e.process(inputs, outputs)
+
+    def state(self):
+        return [e.state() for e in self._evaluators]
+
+    def merge_state(self, states):
+        for i, e in enumerate(self._evaluators):
+            e.merge_state([s[i] for s in states])
 
     def evaluate(self):
         results: Dict = {}
@@ -89,6 +133,9 @@ def inference_on_dataset(run_model: Callable, data_loader, evaluator: DatasetEva
             logger.info(f"inference {i+1}/{total} ({per_img:.3f} s/img, ETA {eta})")
             last_log = now
         i += 1
+    # each rank evaluated its shard (data/build.py): merge the shards' states
+    # so the metrics are the dataset's
+    evaluator.merge_across_processes()
     results = evaluator.evaluate()
     total_t = time.perf_counter() - start
     logger.info(f"inference done: {total} images in {total_t:.1f}s ({total / max(total_t,1e-9):.2f} img/s)")

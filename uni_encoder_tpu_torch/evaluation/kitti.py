@@ -111,6 +111,12 @@ class KITTIDepthEvaluator(DatasetEvaluator):
             depth_pred = np.clip(depth_pred * ratio, self.MIN_DEPTH, self.MAX_DEPTH)
             self.metrics.append(_depth_errors(depth_gt, depth_pred))
 
+    def state(self):
+        return self.metrics
+
+    def merge_state(self, states):
+        self.metrics = [m for shard in states for m in shard]
+
     def evaluate(self):
         m = np.mean(np.stack(self.metrics), axis=0)
         keys = ("abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3")

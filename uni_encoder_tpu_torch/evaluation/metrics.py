@@ -55,6 +55,10 @@ class ConfusionMatrix:
             self.num_classes, self.num_classes
         )
 
+    def merge(self, other: "ConfusionMatrix"):
+        """Accumulate another shard's confusion matrix (sharded evaluation)."""
+        self.mat += other.mat
+
     def miou(self) -> Tuple[float, np.ndarray]:
         inter = np.diag(self.mat).astype(np.float64)
         union = self.mat.sum(0) + self.mat.sum(1) - np.diag(self.mat)
@@ -134,6 +138,13 @@ class PQStat:
             if void_overlap / area > 0.5:
                 continue
             self.fp[cat] += 1
+
+    def merge(self, other: "PQStat"):
+        """Accumulate another shard's PQ statistics (sharded evaluation)."""
+        self.iou += other.iou
+        self.tp += other.tp
+        self.fp += other.fp
+        self.fn += other.fn
 
     def summarize(self, thing_ids: Sequence[int], stuff_ids: Sequence[int]) -> Dict[str, float]:
         def agg(ids):
@@ -232,6 +243,13 @@ class APAccumulator:
                             taken[best_j] = True
                             img_entries[pi][1][ti] = True
             self.entries[c].extend(img_entries)
+
+    def merge(self, other: "APAccumulator"):
+        """Accumulate another shard's detections and GT counts (sharded
+        evaluation)."""
+        for c, es in other.entries.items():
+            self.entries[c].extend(es)
+        self.n_gt += other.n_gt
 
     def summarize(self) -> Dict[str, float]:
         T = len(self.IOU_THRESHOLDS)

@@ -13,11 +13,12 @@ up the plain version of the fused post-process kernel.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
+from ..ops import interpolate
 from ..utils.misc import masks_to_boxes
 
 
@@ -140,3 +141,14 @@ def instance_inference(mask_cls: torch.Tensor, mask_pred: torch.Tensor, topk: in
         "boxes": masks_to_boxes(bin_masks),
         "query_indices": q_indices.to(torch.int32),
     }
+
+
+def sem_seg_postprocess(result: torch.Tensor, img_size: Tuple[int, int], output_height: int,
+                        output_width: int) -> torch.Tensor:
+    """d2 sem_seg_postprocess: crop the padded region, then bilinear-resize
+    (align_corners=False) the channel maps (C, H, W) to the original
+    resolution."""
+    result = result[:, : img_size[0], : img_size[1]]
+    x = result.permute(1, 2, 0)[None]  # (1, H, W, C)
+    x = interpolate(x, size=(output_height, output_width), mode="bilinear", align_corners=False)
+    return x[0].permute(2, 0, 1)

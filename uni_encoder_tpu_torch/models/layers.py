@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh
+
 
 def relu(x: torch.Tensor) -> torch.Tensor:
     return F.relu(x)
@@ -157,7 +159,10 @@ class FrozenBatchNorm(nn.Module):
     the mean and `E[x^2] - mean^2`, with gradients through both; the stored
     statistics then move by momentum 0.9 towards the batch mean and the
     unbiased batch variance, in place, as the JAX copy's `batch_stats`
-    update does.
+    update does. In a process group (`parallel/mesh.py`) the batch is the
+    global one (SyncBN, as the JAX copy under a sharded jit): the sums of x
+    and x^2 are summed over the ranks, the gradient flowing back through
+    that sum, and every rank makes the same update.
 
     Like d2's `FrozenBatchNorm2d`, its state dict is exactly `weight`,
     `bias`, `running_mean` and `running_var`: no `num_batches_tracked`,
@@ -182,10 +187,11 @@ class FrozenBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training and not self.use_running_average:
             axes = tuple(range(x.ndim - 1))
-            mean = x.mean(dim=axes)
-            var = (x * x).mean(dim=axes) - mean * mean
+            n = x.numel() // x.shape[-1] * mesh.world()  # every rank holds as many rows
+            sums = mesh.all_reduce_sum(torch.cat([x.sum(dim=axes), (x * x).sum(dim=axes)]))
+            mean, mean_sq = (sums / n).chunk(2)
+            var = mean_sq - mean * mean
             with torch.no_grad():
-                n = x.numel() // x.shape[-1]
                 unbiased = var * n / max(n - 1, 1)
                 self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
                 self.running_var.mul_(self.momentum).add_((1 - self.momentum) * unbiased)

@@ -9,6 +9,15 @@ scale. Targets are fixed-shape: N padded slots with a validity mask; padded
 slots contribute nothing. `num_masks` is the per-batch count (the JAX
 trainer builds its criterion with `axis_name=None`).
 
+In a process group (`parallel/mesh.py`) each rank holds its rows of the
+global batch and computes its share of the global loss (the mean over the
+ranks of the shares is the loss of the global batch): `num_masks` and the
+class loss's weight sum are the global batch's, summed over the ranks and
+divided by their number (d2's `num_masks / world_size`), and the
+contrastive loss is the InfoNCE over the global batch, every other rank's
+texts and queries among the negatives (the normalized features gathered
+with gradients).
+
 Random points are drawn by the caller (`SetCriterion.make_draws`) and passed
 in, one dict per prediction set. The matcher's assignments for every
 prediction set cross to the host in one copy.
@@ -21,6 +30,7 @@ from typing import Dict, List, Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel import mesh
 from .matcher import assign_on_host, match_costs, point_sample_per_mask
 
 
@@ -89,16 +99,21 @@ class SetCriterion:
                  "uniform": rand(M, self.num_points - self.n_uncertain, 2)} for _ in range(n_sets)]
 
     # ------------------------------------------------------------------ losses
-    def _labels_loss(self, pred_logits, tgt_labels, q_for_t, tgt_valid):
-        """Weighted CE with empty-class weight no_object_weight."""
+    def _class_targets(self, pred_logits, tgt_labels, q_for_t, tgt_valid):
+        """Each query's target class (K for no object) and its CE weight
+        (no_object_weight for no object)."""
         B, Q, _ = pred_logits.shape
         K = self.num_classes
         target_q = torch.full((B, Q), K, dtype=torch.int64, device=pred_logits.device)
         b_idx = torch.arange(B, device=pred_logits.device)[:, None].expand_as(q_for_t)
         target_q[b_idx[tgt_valid], q_for_t[tgt_valid]] = tgt_labels[tgt_valid].long()
+        return target_q, torch.where(target_q == K, self.no_object_weight, 1.0)
+
+    def _labels_loss(self, pred_logits, target_q, w, w_sum):
+        """Weighted CE: torch CE 'mean' with class weights, the weights'
+        sum `w_sum` given."""
         nll = -torch.log_softmax(pred_logits, dim=-1).gather(2, target_q[..., None])[..., 0]
-        w = torch.where(target_q == K, self.no_object_weight, 1.0)
-        return (w * nll).sum() / w.sum()  # torch CE 'mean' with class weights
+        return (w * nll).sum() / w_sum
 
     def _masks_loss(self, draws, pred_masks, tgt_masks, q_for_t, tgt_valid, num_masks):
         B, Q, H, W = pred_masks.shape
@@ -117,18 +132,23 @@ class SetCriterion:
     def contrastive_loss(self, query_feats: torch.Tensor, text_feats: torch.Tensor,
                          logit_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Bidirectional InfoNCE across the batch between each image's
-        flattened, L2-normalized query features and text features."""
-        q = query_feats.reshape(query_feats.shape[0], -1)
-        t = text_feats.reshape(text_feats.shape[0], -1)
+        flattened, L2-normalized query features and text features. In a
+        process group: over the global batch, this rank's rows (query to
+        text) and columns (text to query) of its logits."""
+        b = query_feats.shape[0]
+        q = query_feats.reshape(b, -1)
+        t = text_feats.reshape(b, -1)
         q = q / (torch.linalg.norm(q, dim=-1, keepdim=True) + 1e-8)
         t = t / (torch.linalg.norm(t, dim=-1, keepdim=True) + 1e-8)
         scale = 1.0 / self.tau if logit_scale is None else torch.clamp(torch.exp(logit_scale), max=100.0)
-        logits = q @ t.T * scale
         # the targets are the diagonal: -log_softmax picked there, as the
         # class loss does (F.cross_entropy's NLLLoss has no deterministic
         # CUDA version)
-        l_qt = -torch.log_softmax(logits, dim=1).diagonal().mean()
-        l_tq = -torch.log_softmax(logits, dim=0).diagonal().mean()
+        q_all, t_all = mesh.all_gather(torch.cat([q, t], dim=1)).split([q.shape[1], t.shape[1]], dim=1)
+        mine = torch.arange(b, device=q.device)
+        theirs = mesh.rank() * b + mine
+        l_qt = -torch.log_softmax(q @ t_all.T * scale, dim=1)[mine, theirs].mean()
+        l_tq = -torch.log_softmax(q_all @ t.T * scale, dim=0)[theirs, mine].mean()
         return l_qt + l_tq
 
     # ------------------------------------------------------------------ main
@@ -138,7 +158,6 @@ class SetCriterion:
         draws: `make_draws` for every prediction set (the final one, then
         the auxiliary ones under deep supervision)."""
         tgt_labels, tgt_masks, tgt_valid = targets["labels"], targets["masks"], targets["valid"]
-        num_masks = torch.clamp(tgt_valid.sum().to(torch.float32), min=1.0)
         layers = [outputs] + (list(outputs.get("aux_outputs", [])) if self.deep_supervision else [])
         if len(draws) != len(layers):
             raise ValueError(f"{len(draws)} draws for {len(layers)} prediction sets")
@@ -151,10 +170,19 @@ class SetCriterion:
         ])
         q_for_t = assign_on_host(costs)  # (sets, B, N)
 
+        # the normalizers: the batch's valid targets, and per set the class
+        # weights' sum; in a process group the global batch's over the
+        # number of ranks, in one all-reduce
+        classes = [self._class_targets(lo["pred_logits"], tgt_labels, q_for_t[li], tgt_valid)
+                   for li, lo in enumerate(layers)]
+        norms = mesh.all_reduce_sum(torch.stack([tgt_valid.sum().to(torch.float32)] + [w.sum() for _, w in classes]))
+        num_masks = torch.clamp(norms[0], min=1.0) / mesh.world()
+        w_sums = norms[1:] / mesh.world()
+
         losses = {}
         total = 0.0
         for li, (layer_out, d) in enumerate(zip(layers, draws)):
-            l_ce = self._labels_loss(layer_out["pred_logits"], tgt_labels, q_for_t[li], tgt_valid)
+            l_ce = self._labels_loss(layer_out["pred_logits"], *classes[li], w_sums[li])
             l_bce, l_dice = self._masks_loss(d, layer_out["pred_masks"], tgt_masks, q_for_t[li], tgt_valid,
                                              num_masks)
             tag = "" if li == 0 else f"_{li - 1}"

@@ -13,6 +13,13 @@ Seven weighted terms over the decoder's scales:
 with a linear ramp on the last four (clip(3 * step / 35000, 0, 1)) and the
 total averaged over scales.
 
+In a process group (`parallel/mesh.py`) each rank holds its rows of the
+global batch. Every term but m_sparsity is a mean over the images, pixels
+or points of equal local shapes, so the mean over the ranks of their terms
+is the global batch's; m_sparsity's static threshold (a mean over the
+batch's pixels per frame), its count of static pixels and its `all` over
+the batch are the global batch's, summed over the ranks.
+
 The photometric warp runs batched over (frame, scale, batch) at full
 resolution. The RANSAC ground plane fits every candidate plane of a scale at
 once (batched 3x3 `torch.linalg.inv`). The identity noise and the RANSAC
@@ -36,6 +43,7 @@ from ..geometry import (
     ssim,
 )
 from ..ops import grid_sample, interpolate
+from ..parallel import mesh
 
 COEFS = {
     "p_photo": 1.0,
@@ -237,11 +245,16 @@ def monodepth_loss(
         sc = interpolate(sample_complete_fs[:, scale].reshape(Fn * B, H, W, 2), size=(h, w),
                          mode="bilinear", align_corners=False)
         disp_mag = ((se - sc) ** 2).sum(dim=-1).reshape(Fn, B, h, w)
-        static = (disp_mag < disp_mag.mean(dim=(1, 2, 3), keepdim=True)).to(disp_s.dtype)  # per-frame mean
-        n_static = static.sum(dim=(1, 2, 3))  # (F,)
         # BCEWithLogits(prob, 0) == softplus(prob); masked mean over static pixels
-        bce = (F.softplus(prob_s[..., 0]).reshape(Fn, B, h, w) * static).sum(dim=(1, 2, 3)) / n_static.clamp(min=1)
-        all_have_static = (static.sum(dim=(2, 3)) > 0).all(dim=1)  # (F,)
+        bce_map = F.softplus(prob_s[..., 0]).reshape(Fn, B, h, w)
+        # the global batch's per-frame threshold, static count and `all`
+        mean_mag = mesh.all_reduce_sum(disp_mag.sum(dim=(1, 2, 3))) / (mesh.world() * B * h * w)
+        static = (disp_mag < mean_mag[:, None, None, None]).to(disp_s.dtype)
+        counts = mesh.all_reduce_sum(torch.cat([static.sum(dim=(1, 2, 3)),
+                                                (static.sum(dim=(2, 3)) == 0).sum(dim=1).to(static.dtype)]))
+        n_static, all_have_static = counts[:Fn], counts[Fn:] == 0  # (F,) each
+        # this rank's share: the mean over the ranks of the shares is the global masked mean
+        bce = (bce_map * static).sum(dim=(1, 2, 3)) / (n_static.clamp(min=1) / mesh.world())
         ps["m_sparsity"] = torch.where(all_have_static, 3.0 * bce, 0.0).mean() / div
 
         ps["m_smooth"] = compute_smooth_loss(mask_s, color_sf) / div

@@ -28,6 +28,18 @@ probability 1 - rate:
 The first block's rate is 0: it ignores its masks (the JAX copy draws none
 for it).
 
+Data parallelism: in a process group (`parallel/mesh.py`) each rank is
+given its rows of the global batch (`mesh.shard_batch`) and takes the step
+of the JAX trainer on N devices, which is the one-device step at the global
+batch. Every rank draws the global batch's draws from the same generator and
+keeps its rows (`shard_draws`; `drop_seq`'s batch axis is the frame-major
+`cat([cur, prev, next])`, so a rank's rows there are three blocks). Its
+loss is its share of the global loss (the train-mode BatchNorm statistics,
+the criterion's normalizers and contrastive loss and m_sparsity are the
+global batch's); its gradients are averaged over the ranks before the clip
+and AdamW, so every rank makes the same update; and the reported losses
+are their means over the ranks, the global values.
+
 Determinism: `Trainer(cfg, deterministic=True)` takes each step with
 cuDNN's benchmark off, `cudnn.deterministic` on and
 `torch.use_deterministic_algorithms(True)`, and restores all three after
@@ -54,6 +66,7 @@ import torch
 
 from ..config import Config
 from ..models.oneformer import UniEncoder
+from ..parallel import mesh
 from . import monodepth
 from .criterion import SetCriterion
 
@@ -239,9 +252,11 @@ class Trainer:
         return of.dec_layers if of.deep_supervision else 1  # the seed and every round
 
     def make_draws(self, generator: torch.Generator, seg_batch: Dict, seq_batch: Dict,
-                   device: torch.device) -> Dict:
+                   device: torch.device, world: int = 1) -> Dict:
         """Every random number of one step, from `generator`, in a fixed
-        order; drawn where the generator lives, then moved to `device`."""
+        order; drawn where the generator lives, then moved to `device`. With
+        `world`, those of the global batch of `world` times the given
+        batches' rows."""
         name = self.model_cfg.backbone.name
         backbone = getattr(self.model_cfg.backbone, name)
 
@@ -256,8 +271,9 @@ class Trainer:
             masks = (u < keep.to(u.device)).to(torch.float32).to(device)
             return masks[:, 0] if name == "convnext" else masks
 
-        B = seg_batch["images"].shape[0]
+        B = seg_batch["images"].shape[0] * world
         Bs, H, W = seq_batch["images"].shape[:3]
+        Bs *= world
         S = self.model_cfg.num_depth_scales
         return {
             "drop_seg": keep_masks(B),
@@ -266,6 +282,35 @@ class Trainer:
                                                    seg_batch["labels"].shape[1], device),
             "monodepth": monodepth.make_draws(generator, Bs, H, W, [(H >> s, W >> s) for s in range(S)],
                                               2, device),
+        }
+
+    @staticmethod
+    def shard_draws(draws: Dict, rank: int, world: int) -> Dict:
+        """Rank `rank`'s rows of the global batch's draws (`make_draws` with
+        `world`): the contiguous block of each batch axis, and of
+        `drop_seq`'s frame-major axis the block of each frame."""
+        if world == 1:
+            return draws
+
+        def rows(x):  # the block along the first axis
+            b = x.shape[0] // world
+            return x[rank * b:(rank + 1) * b]
+
+        def seq_rows(masks):  # (..., 3 * Bs): [cur | prev | next], each Bs wide
+            if masks is None:
+                return None
+            frames = masks.reshape(*masks.shape[:-1], 3, world, -1)[..., rank, :]
+            return frames.reshape(*masks.shape[:-1], -1)
+
+        seg = draws["drop_seg"]
+        md = draws["monodepth"]
+        return {
+            "drop_seg": None if seg is None else seg.reshape(*seg.shape[:-1], world, -1)[..., rank, :],
+            "drop_seq": seq_rows(draws["drop_seq"]),
+            # the mask losses' points are (B * N, ...): image-major, so a block too
+            "criterion": [{k: rows(v) for k, v in d.items()} for d in draws["criterion"]],
+            "monodepth": {"noise": [rows(x) for x in md["noise"]], "ransac_idx": [rows(x) for x in md["ransac_idx"]],
+                          "n_ground": md["n_ground"]},
         }
 
     # -------------------------------------------------------------- step
@@ -294,7 +339,11 @@ class Trainer:
         """One step, in place: draws from `generator` (or the given draws),
         forward, backward, clip and AdamW update, BatchNorm statistics
         moved, `state.step` + 1. Returns the state and the detached losses
-        (0-d tensors on the device; reading them waits for the step)."""
+        (0-d tensors on the device; reading them waits for the step).
+
+        In a process group the batches are this rank's rows of the global
+        batch, the draws (made here, or given) the global batch's, and the
+        gradients, the update and the losses returned the global batch's."""
         model = state.model
         device = next(model.parameters()).device
         if self.deterministic and device.type == "cuda":
@@ -302,14 +351,17 @@ class Trainer:
         if draws is None:
             if generator is None:
                 raise ValueError("give a generator or the draws")
-            draws = self.make_draws(generator, seg_batch, seq_batch, device)
+            draws = self.make_draws(generator, seg_batch, seq_batch, device, world=mesh.world())
+        draws = self.shard_draws(draws, mesh.rank(), mesh.world())
         model.train()
         model.zero_grad(set_to_none=True)
         with _algorithms(self.deterministic):
             losses = self.losses(state, seg_batch, seq_batch, draws)
             losses["loss"].backward()
+            mesh.all_reduce_gradients(model.parameters())
             opt = self.optimizer.step(state.opt, dict(model.named_parameters()))
         state.step += 1
         metrics = {k: (v.detach() if torch.is_tensor(v) else torch.tensor(v)) for k, v in losses.items()}
+        metrics = mesh.mean_over_ranks(metrics)
         metrics.update(opt)
         return state, metrics
