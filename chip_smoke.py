@@ -11,11 +11,11 @@ training steps, and reports per-kernel times.
 Phases, one JSON line each: device, build, k1_vs_plain, k1_class_chunks,
 k2_vs_plain, k3_vs_plain, k4_vs_plain, k5_vs_plain, serve, stages, profile,
 kernels_on_served_tensors, reference_small, sequence, sequence_stages, frame,
-predictor, sequence_reference_small, train, train_reference_small,
-train_deterministic, train_backbones (one line per config), train_entry,
-eval, backbones (one line per config), decoders (one line per model, one
-for the modules no config selects), convert, demo, eval_ade20k and
-multi_device.
+predictor, sequence_reference_small, train, train_deterministic,
+train_reference_small, train_backbones (one line per config),
+train_decoders (one line per model), tools, train_entry, eval, backbones
+(one line per config), decoders (one line per model, one for the modules
+no config selects), convert, demo, eval_ade20k and multi_device.
 Each line carries `elapsed_s`, the seconds since the script started.
 Then the card's name and power limit as nvidia-smi reports them, the
 {"kernels": [...]} line, and last {"ok": true, "device": {...}}. Any failure
@@ -40,6 +40,32 @@ small step moves between one thread (a child, `--cpu-step-child`, run on
 one core beside the deterministic children) and this process's thread
 count: the motion decoder's gradient passes through the RANSAC
 ground-plane fit, which the order of fp32 sums alone moves.
+
+`train_reference_small` holds the card's small Swin-T step against the
+CPU's at this process's thread count by the same rule, read once the
+one-thread child of train_deterministic has finished (its line follows
+train_deterministic's).
+
+The phase `train_decoders` takes a full-width training step on Swin-T with
+each of the other decoder pairs the JAX builder selects (DECODER_MODELS,
+by overrides of model.sem_seg_head.{pixel,depth}_decoder_name; fp32, TF32
+off, train's batch, random weights from seed 0): one warm-up step, one
+timed, one profiled. It fails unless the losses are finite, every
+parameter with a gradient moved, DCMNet's BatchNorm statistics stay as
+stored, and the launches per step are exact: K2 and K3 6 on (c)'s
+segmentation side and 6 more on its sequence side
+(DepthMSDeformAttnPixelDecoder), none on (a) and (b), K1, K4 and K5 none.
+On (c) K3 is held against its plain version on the warm-up step's first
+sequence-side call. Each model's small step on the card is held against
+the CPU's by small_step_errors' rule; the CPU steps (at 2 threads, then at
+1, then at 1 from images moved by one ulp) run in one child process a model (`--cpu-step-child` with
+DECODER_CHILD_CONFIG), started after the build. Their first
+steps try one cuDNN algorithm a convolution (DECODER_CUDNN_BENCHMARK_LIMIT). The phase `tools`
+runs tools/calc_throughput_torch.py (img/s of the real training step on
+the JAX tool's fixed batch at 192x512, 2 items a modality, 10 iterations)
+and tools/analyze_model_torch.py (parameters, operator FLOPs, peak
+activation memory and ms an image of the segmentation forward at
+512x1024): K2 and K3 6 a step, K2 6 a forward, K1 never.
 
 The phase `train_entry` drives the training entry point, `train_torch.main`,
 on the production Swin-T config (configs/cityscapes_swin_unified.yaml, read
@@ -278,6 +304,10 @@ WATCHED_DINAT = tuple(n for n in WATCHED if not n.startswith("backbone.")) + (
     "backbone.levels.0.blocks.0.attn.qkv.weight", "backbone.levels.0.blocks.1.attn.rpb")
 N_TRAIN_BACKBONE_TIMED = 2  # training steps timed per backbone config, after one warm-up; one more profiled
 TRAIN_ENTRY_DINAT_ITERS = 2  # train_torch.main on configs/cityscapes_dinat.yaml (of 90 000)
+# train_backbones' DiNAT-L small step on the CPU: the reference's threads, in
+# a child beside the one-thread step (taken in this process at its thread
+# count, it held the main process for most of DiNAT-L's part of the phase)
+DINAT_CPU_THREADS = 2
 # the CUDA kernels of K5's source; ptxas must give each a 0-byte stack frame and no spill
 K5_KERNELS = ("na2d_bwd_query_kernel", "na2d_bwd_key_kernel", "na2d_bwd_rpb_kernel")
 # K5's precision stress, (B, H, W, heads, dh, dilation, kernel, gain): q and k
@@ -372,6 +402,64 @@ DECODER_MODELS = {"a": ("BasePixelDecoder", "DCMNet"),
                   "c": ("MSDeformAttnPixelDecoder", "DepthMSDeformAttnPixelDecoder")}
 DECODER_DISP_STRIDE = {"a": 2, "b": 4, "c": 4}
 N_DECODER_REQUESTS = 2  # served per model and request kind with the launch counts read; one more profiled
+# phase train_decoders: a full-width training step on each DECODER_MODELS
+# pair after one warm-up (reduced: 1 timed step); the parameters whose
+# gradients its small step holds against the CPU, and whose values must move
+N_TRAIN_DECODER_TIMED = 1
+WATCHED_DECODERS = {
+    "a": ("sem_seg_head.pixel_decoder.layer_4.weight", "sem_seg_head.pixel_decoder.mask_features.weight",
+          "sem_seg_head.depth_decoder.fpn_bottleneck_0.conv.weight", "sem_seg_head.depth_decoder.last_layer_0.weight"),
+    "b": ("sem_seg_head.pixel_decoder.transformer.encoder.layers.0.linear1.weight",
+          "sem_seg_head.pixel_decoder.mask_features.weight",
+          "sem_seg_head.depth_decoder.transformer.encoder.layers.0.self_attn.in_proj_weight",
+          "sem_seg_head.depth_decoder.low_disp_3.conv0.weight"),
+    "c": ("sem_seg_head.pixel_decoder.transformer.encoder.layers.0.self_attn.sampling_offsets.weight",
+          "sem_seg_head.pixel_decoder.adapter_1.weight",
+          "sem_seg_head.depth_decoder.transformer.encoder.layers.0.self_attn.sampling_offsets.weight",
+          "sem_seg_head.depth_decoder.low_disp_3.conv0.weight"),
+}
+# the parameters every model shares that its small step holds: the
+# backbone's first qkv and the class head. The motion decoder's and the
+# text encoder's gradients are reported and not held (UNHELD_DECODERS): on
+# these random models the motion decoder's passes through the monodepth
+# loss's photometric warp near the camera plane, and the card moved it by
+# 1.05e-2 to 1.12e-2 from the CPU's at 2 threads, while the CPU's own steps
+# at 1 thread and from ulp-moved images moved it by 2.9e-3 to 1.2e-2 (it
+# failed twice the larger of two such samples on (b)); the text encoder's
+# passes through the contrastive loss of the query decoder's features,
+# whose masked attention thresholds its own mask logits: 1.21e-3 on (a)
+# against the CPU's 2.5e-4 (ROADMAP Queue 3). Both are held on the
+# shipped pair (train_reference_small)
+WATCHED_SHARED = tuple(n for n in WATCHED if n.startswith(("backbone.", "sem_seg_head.predictor.")))
+UNHELD_DECODERS = tuple(n for n in WATCHED if n.startswith(("motion_decoder.", "text_encoder.")))
+DECODER_CHILD_CONFIG = "decoders:"  # a child's config argument for Swin-T with DECODER_MODELS[letter]
+# a decoder model's child takes the small step on the CPU at 2 threads (the
+# reference), then at 1, then at 1 from images moved by one ulp
+# (`ulp_moved`): the spread of rounding alone is the larger of the last two
+# differences from the first. The depth and motion decoders' gradients pass
+# through the monodepth loss, whose photometric warp on random weights puts
+# points near the camera plane: on (a) the card moved DCMNet's
+# fpn_bottleneck_0 gradient by 1.5e-3 and the motion decoder's by 1.1e-2,
+# the CPU at 1 thread by 1.6e-4 and 1.2e-2, at 1 thread from moved images by
+# 3.4e-3 and 4.2e-3 (tests/test_torch_port_train_{dcmnet,fpn,msdeform}.py
+# find the same loss's disparity gradients 3e-4 to 2e-2 apart between two
+# implementations)
+DECODER_CPU_STEPS = ("2", "1", "1u")
+# cuDNN algorithms tried a convolution on the decoder models' first step
+# (torch's default is 10): at 10, (a)'s first step took 62 s of
+# benchmarking (DCMNet's 512-wide fp32 convolutions) and its step 367.5 ms
+# of device time, at 1 (cuDNN's first choice) 2.1 s and 477.1 ms (H100
+# 80GB HBM3, 700 W). The decoder models' step times, and their small steps on
+# the card, are at this limit
+DECODER_CUDNN_BENCHMARK_LIMIT = 1
+# phase tools: tools/calc_throughput_torch.py on the default config at its
+# size (reduced: TOOLS_THROUGHPUT_ITERS of the JAX tool's 30 iterations, and
+# batch TRAIN_BATCH of its 4: the phase train benchmarked that batch's
+# convolutions, and at 4 the first step benchmarks every one of them anew
+# with cuDNN, 97 s for the tool in all), and tools/analyze_model_torch.py at
+# its defaults
+TOOLS_THROUGHPUT_ITERS = 10
+TOOLS_ANALYZE_ITERS = 20
 # the modules no config selects, at their full widths on a 192x512 input:
 # monodepth2's encoder pyramid (stem at stride 2 .. res5 at 32) and the
 # motion decoder's 8-channel full-resolution input (two RGB frames and
@@ -616,10 +704,13 @@ def reset_launches(*wrappers):
 def profile_device(fn, n, untraced_ms):
     """Device kernel time of one `fn()` from torch.profiler over `n` calls,
     the busy share (traced, and against the untraced wall time
-    `untraced_ms`), launches per call and the largest kernels."""
+    `untraced_ms`), launches per call and the largest kernels. Only the
+    device's activity is traced: reading a profile of training steps back
+    took 26 s so, and 48 s with the host's operators traced too (H100
+    80GB HBM3, 700 W)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
@@ -722,15 +813,28 @@ def k3_bound(B, Lq, S, M, D, L, P):
     return nbytes, flops
 
 
-def small_train_step(Trainer, cfg, device, deterministic=False, watched=WATCHED):
+def small_seq_hw(model_cfg):
+    """The small step's frame size: 64x128, or taller where the depth
+    decoder's coarsest disparity would keep no ground row there (3 rows at
+    least: decoders at strides 4 to 32 take 96x128)."""
+    from uni_encoder_tpu_torch.models.oneformer import disparity_strides
+
+    return max(64, 3 * max(disparity_strides(model_cfg))), 128
+
+
+def small_train_step(Trainer, cfg, device, deterministic=False, watched=WATCHED, moved=False):
     """One fp32 training step at the full width on a small batch (2 crops
-    of 128x256 with 20 target slots, 8 valid; 2 frame triples of 64x128),
-    weights from seed 0 and draws from seed 1: (losses, the `watched`
-    gradients, every updated parameter), on `device`."""
+    of 128x256 with 20 target slots, 8 valid; 2 frame triples of
+    `small_seq_hw`, 64x128 but for the stride-4 depth decoders; with
+    `moved`, every image float moved by one ulp, `ulp_moved`), weights from
+    seed 0 and draws from seed 1: (losses, the `watched` gradients, every
+    updated parameter), on `device`."""
     n_texts = cfg.model.one_former.num_object_queries - cfg.model.text_encoder.n_ctx
     tr = Trainer(cfg, device=device, deterministic=deterministic)
     st = tr.init(seed=0)
-    seg_s, seq_s = train_batches(1, TRAIN_BATCH, (128, 256), (64, 128), 20, 8, n_texts, device)
+    seg_s, seq_s = train_batches(1, TRAIN_BATCH, (128, 256), small_seq_hw(cfg.model), 20, 8, n_texts, device)
+    if moved:
+        seg_s, seq_s = ulp_moved(seg_s, seq_s)
     draws = tr.make_draws(torch.Generator().manual_seed(1), seg_s, seq_s, device)
     _, m = tr.train_step(st, seg_s, seq_s, draws=draws)
     params = dict(st.model.named_parameters())
@@ -753,9 +857,15 @@ def small_step_errors(phase, got, ref, watched=WATCHED, cpu_steps=None):
     also differ by up to twice as much as those two differ: where the step
     is ill-conditioned (a near-singular RANSAC plane fit, a decoder's
     cancelling gradients), that is the part of a difference the port
-    cannot remove."""
+    cannot remove. `cpu_steps` may also be a list of such pairs (other
+    roundings of the same step): then twice the largest of their
+    differences."""
     loss_err, grad_err = step_differences(got, ref, watched)
-    loss_noise, grad_noise = step_differences(*cpu_steps, watched) if cpu_steps else ({}, {})
+    loss_noise, grad_noise = {}, {}
+    for pair in (cpu_steps if isinstance(cpu_steps, list) else [cpu_steps] if cpu_steps else []):
+        for noise, err in zip((loss_noise, grad_noise), step_differences(*pair, watched)):
+            for k, v in err.items():
+                noise[k] = max(noise.get(k, 0.0), v)
     for k, r in ref[0].items():
         if not loss_err[k] <= max(1e-4 + 1e-3 * abs(r), 2 * loss_noise.get(k, 0.0)):
             raise AssertionError(f"{phase} {k}: {got[0][k]} against {r} (the CPU against itself: "
@@ -840,11 +950,29 @@ def deterministic_children(paths, configs, meanwhile=lambda: None):
     return out, env["CUBLAS_WORKSPACE_CONFIG"]
 
 
+def decoder_overrides(key):
+    """The overrides that select DECODER_MODELS[key] on the Swin-T config."""
+    pixel, depth = DECODER_MODELS[key]
+    return [f"model.sem_seg_head.pixel_decoder_name={pixel}", f"model.sem_seg_head.depth_decoder_name={depth}"]
+
+
+def decoder_config(key):
+    """configs/cityscapes_swin_unified.yaml with DECODER_MODELS[key]."""
+    from uni_encoder_tpu_torch.config import load_config
+
+    return load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), TRAIN_ENTRY_CONFIG),
+                       decoder_overrides(key))
+
+
 def load_child_config(config):
-    """A child's config argument: a config file, or DEFAULT_CONFIG for the
-    default Swin-T model; and the watched parameters on it."""
+    """A child's config argument: a config file, DEFAULT_CONFIG for the
+    default Swin-T model, or DECODER_CHILD_CONFIG + a DECODER_MODELS key;
+    and the watched parameters on it."""
     from uni_encoder_tpu_torch.config import Config, load_config
 
+    if config.startswith(DECODER_CHILD_CONFIG):
+        key = config[len(DECODER_CHILD_CONFIG):]
+        return decoder_config(key), WATCHED_SHARED + WATCHED_DECODERS[key] + UNHELD_DECODERS
     cfg = Config() if config == DEFAULT_CONFIG else load_config(config)
     return cfg, WATCHED_DINAT if cfg.model.backbone.name == "dinat" else WATCHED
 
@@ -872,17 +1000,28 @@ def train_deterministic_child(out_path, *configs):
     torch.save(saved, out_path)
 
 
+def cpu_step_key(spec):
+    """The key of a `cpu_step_child` step: its thread count, or "1u"."""
+    return spec if spec.endswith("u") else int(spec)
+
+
 def cpu_step_child(out_path, config, threads):
-    """The child of phases train_deterministic (Swin-T) and train_backbones
-    (DiNAT-L): the small step on the CPU at
-    `threads` threads, its losses and watched gradients saved to
-    `out_path`."""
+    """The child of phases train_deterministic (Swin-T), train_backbones
+    (DiNAT-L) and train_decoders (each DECODER_MODELS pair): the small step
+    on the CPU at each of the comma-separated thread counts `threads` in
+    turn (a count followed by "u": from images moved by one ulp), its
+    losses and watched gradients saved to `out_path`, keyed by the count
+    (an int) or, moved, by its spec ("1u")."""
     from uni_encoder_tpu_torch.training.train_step import Trainer
 
-    torch.set_num_threads(int(threads))
     cfg, watched = load_child_config(config)
-    m, grads, _ = small_train_step(Trainer, cfg, torch.device("cpu"), watched=watched)
-    torch.save({"losses": {k: float(v) for k, v in m.items()}, "grads": grads}, out_path)
+    saved = {}
+    for spec in threads.split(","):
+        torch.set_num_threads(int(spec.rstrip("u")))
+        m, grads, _ = small_train_step(Trainer, cfg, torch.device("cpu"), watched=watched, moved=spec.endswith("u"))
+        saved[cpu_step_key(spec)] = {"losses": {k: float(v) for k, v in m.items()}, "grads": grads}
+        del m, grads
+    torch.save(saved, out_path)
 
 
 def k3_scatter_rows(shapes, off, logits, ref_abs, M):
@@ -1671,7 +1810,23 @@ def k5_phase(dev, smi, usage):
         lambda: k5_library(qkv, rpb, grad_out, got[0], scale, kernel)
 
 
-def train_backbones_phase(dev, smi, kernel_fns, dinat_deterministic, workspace):
+def start_cpu_steps(tag, config, *specs):
+    """The small step of `config` (a child's config argument) on the CPU, one
+    child a spec of `specs` (`cpu_step_child`'s comma-separated steps), all
+    started at once (`--cpu-step-child`); returns [(child, path)] in that
+    order."""
+    from uni_encoder_tpu_torch import kernels
+
+    started = []
+    for spec in map(str, specs):
+        path = os.path.join(os.path.dirname(kernels.BUILD_DIR), f"{tag}_cpu_{spec.replace(',', '_')}.pt")
+        child = start_child(CPU_STEP_CHILD, path, config, spec)
+        kill_at_exit(child)
+        started.append((child, path))
+    return started
+
+
+def train_backbones_phase(dev, smi, kernel_fns, dinat_deterministic, workspace, dinat_cpu_steps):
     """A full-width training step on each of configs/cityscapes_{r18,
     convnext,dinat}.yaml: fp32, TF32 off, a synthetic batch of TRAIN_BATCH
     512x1024 crops and TRAIN_BATCH 192x512 triples, random weights from
@@ -1683,27 +1838,12 @@ def train_backbones_phase(dev, smi, kernel_fns, dinat_deterministic, workspace):
     statistics must stay as stored. On DiNAT-L, one small step on the card
     against the CPU with the same draws (as train_reference_small, each
     quantity also allowed twice the difference between the CPU's step at
-    its thread count and at one thread; the one-thread step runs in a child
-    process on one core from the start of the phase, beside the card's
-    steps), and `dinat_deterministic`, the two deterministic steps that
-    phase train_deterministic's children took on that config (their runs
-    and byte equality), against the card's small step. Returns each
-    config's launches over its timed steps."""
-    from uni_encoder_tpu_torch import kernels
-
-    here = os.path.dirname(os.path.abspath(__file__))
-    noise_path = os.path.join(os.path.dirname(kernels.BUILD_DIR), "train_dinat_cpu_1_thread.pt")
-    noise_child = start_child(CPU_STEP_CHILD, noise_path, os.path.join(here, BACKBONE_CONFIGS["dinat"]), "1")
-    try:
-        return train_backbones_steps(dev, smi, kernel_fns, dinat_deterministic, workspace, noise_child, noise_path)
-    finally:
-        if noise_child.poll() is None:
-            noise_child.kill()
-            noise_child.wait()
-
-
-def train_backbones_steps(dev, smi, kernel_fns, dinat_deterministic, workspace, noise_child, noise_path):
-    """train_backbones_phase's steps, with its one-thread CPU child running."""
+    DINAT_CPU_THREADS threads and at one thread; both CPU steps,
+    `dinat_cpu_steps`, run in child processes started after the build),
+    and `dinat_deterministic`, the two deterministic steps that phase
+    train_deterministic's children took on that config (their runs and
+    byte equality), against the card's small step. Returns each config's
+    launches over its timed steps."""
     from uni_encoder_tpu_torch.config import load_config
     from uni_encoder_tpu_torch.training.train_step import Trainer
 
@@ -1780,14 +1920,14 @@ def train_backbones_steps(dev, smi, kernel_fns, dinat_deterministic, workspace, 
             # move by up to 2% and 4% with the order of fp32 sums alone
             watched = WATCHED_DINAT
             small = {}
-            for dname, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
-                m, grads, _ = small_train_step(Trainer, cfg, d, watched=watched)
-                small[dname] = ({k: float(v) for k, v in m.items()}, {n: v.cpu() for n, v in grads.items()})
-                del m, grads
+            m, grads, _ = small_train_step(Trainer, cfg, dev, watched=watched)
+            small["cuda"] = ({k: float(v) for k, v in m.items()}, {n: v.cpu() for n, v in grads.items()})
+            del m, grads
             t0 = time.perf_counter()
-            (one_thread,) = finish_children([noise_child], [noise_path], timeout=600)
+            ref_run, one_thread = finish_children(*zip(*dinat_cpu_steps), timeout=600)
             noise_wait_s = time.perf_counter() - t0
-            noise = (one_thread["losses"], one_thread["grads"])
+            small["cpu"] = (ref_run[DINAT_CPU_THREADS]["losses"], ref_run[DINAT_CPU_THREADS]["grads"])
+            noise = (one_thread[1]["losses"], one_thread[1]["grads"])
             cpu_steps = (noise, small["cpu"])
             loss_err, grad_err = small_step_errors("train_backbones dinat small", small["cuda"], small["cpu"],
                                                    watched, cpu_steps)
@@ -1801,8 +1941,8 @@ def train_backbones_steps(dev, smi, kernel_fns, dinat_deterministic, workspace, 
             fields = {"reference_small": {"segmentation": [TRAIN_BATCH, 128, 256, 3],
                                           "sequence": [TRAIN_BATCH, 3, 64, 128, 3], "loss_abs_err": loss_err,
                                           "grad_relative_norm_err": grad_err,
-                                          "cpu_threads": [torch.get_num_threads(), 1],
-                                          "one_thread_child_wait_s": noise_wait_s,
+                                          "cpu_threads": [DINAT_CPU_THREADS, 1],
+                                          "cpu_children_wait_s": noise_wait_s,
                                           "cpu_vs_cpu_loss_abs_err": noise_loss,
                                           "cpu_vs_cpu_grad_relative_norm_err": noise_grad,
                                           "tolerance": "losses atol 1e-4 + rtol 1e-3; gradients |cuda - cpu| / "
@@ -1825,6 +1965,249 @@ def train_backbones_steps(dev, smi, kernel_fns, dinat_deterministic, workspace, 
              cold_step_peak_memory_gb=cold_peak_gb, steady_peak_memory_gb=peak_gb, losses=losses, checks=checks,
              **fields, seconds=time.perf_counter() - t_phase, card=smi)
         fail_unless(f"train_backbones {name}", checks)
+    return launched
+
+
+@contextlib.contextmanager
+def cudnn_benchmark_limit(limit):
+    """Within the block, cuDNN's benchmark tries `limit` algorithms a
+    convolution."""
+    saved = torch.backends.cudnn.benchmark_limit
+    torch.backends.cudnn.benchmark_limit = limit
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark_limit = saved
+
+
+@contextlib.contextmanager
+def recorded_k3_calls(shapes):
+    """Within the block, records the inputs of the first K3 call whose level
+    grids are `shapes` (clones: value, offsets, logits, ref_abs, grad_out)
+    into the yielded list, from the backward of the autograd function that
+    launches it; the call itself runs and counts as it would."""
+    from uni_encoder_tpu_torch.ops.ms_deform_attn import _FusedCuda
+
+    backward = _FusedCuda.backward
+    seen = []
+
+    def recording(ctx, grad_out):
+        if not seen and tuple(map(tuple, ctx.spatial_shapes)) == tuple(shapes):
+            seen.append((tuple(ctx.spatial_shapes),
+                         *(x.detach().clone() for x in (*ctx.saved_tensors, grad_out.contiguous()))))
+        return backward(ctx, grad_out)
+
+    _FusedCuda.backward = staticmethod(recording)
+    try:
+        yield seen
+    finally:
+        _FusedCuda.backward = staticmethod(backward)
+
+
+def k3_on_recorded_call(seen):
+    """K3 against autograd of its plain version on a `recorded_k3_calls`
+    call, at k3_vs_plain's tolerance (it raises past it)."""
+    from uni_encoder_tpu_torch.ops.ms_deform_attn import ms_deform_attn_fused_backward_cuda, ms_deform_attn_fused_plain
+
+    (shapes, value, off, logits, ref_abs, grad_out), = seen
+    got = ms_deform_attn_fused_backward_cuda(value, shapes, off, logits, ref_abs, grad_out)
+    leaves = [x.clone().requires_grad_(True) for x in (value, off, logits)]
+    ref = torch.autograd.grad(ms_deform_attn_fused_plain(leaves[0], shapes, leaves[1], leaves[2], ref_abs), leaves,
+                              grad_out)
+    err = {}
+    for name, a, b in zip(("value", "offsets", "logits"), got, ref):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4, msg=f"K3 on the recorded call, grad {name}")
+        err[name] = (a - b).abs().max().item()
+    return {"max_abs_err": err, "value_shape": list(value.shape), "level_grids": [list(g) for g in shapes],
+            "tolerance": "atol/rtol 1e-4 (k3_vs_plain's)"}
+
+
+def train_decoders_phase(dev, smi, kernel_fns, cpu_steps):
+    """A full-width training step on Swin-T with each DECODER_MODELS pair
+    (configs/cityscapes_swin_unified.yaml and the decoder names' overrides):
+    fp32, TF32 off, train's batch (TRAIN_BATCH 512x1024 crops, TRAIN_SLOTS
+    target slots of which TRAIN_VALID valid, TRAIN_BATCH 192x512 triples),
+    random weights from seed 0; one warm-up step (its peak holds cuDNN's
+    benchmarking), N_TRAIN_DECODER_TIMED timed, one profiled. Fails unless
+    the losses are finite, every parameter with a gradient moved, DCMNet's
+    stored BatchNorm statistics stay as stored (the JAX DCMNet builds its
+    FrozenBatchNorm with them in training), and the launches per step are
+    exact: K2 and K3 6 for the segmentation side's deformable encoder
+    where it runs and 6 more for DepthMSDeformAttn's on the sequence side,
+    K1, K4 and K5 none. On the DepthMSDeformAttn model K3 is held against
+    its plain version on the warm-up step's first sequence-side call. Then
+    the small step on the card against the CPU's (`cpu_steps`: by model,
+    the (child, path) of start_cpu_steps taking DECODER_CPU_STEPS: the
+    reference at 2 threads, the step again at one thread and at one thread
+    from ulp-moved images), small_step_errors' rule with both probes. Returns each model's launches over its timed
+    steps."""
+    from uni_encoder_tpu_torch.training.train_step import Trainer
+
+    launched = {}
+    for key, (pixel, depth) in DECODER_MODELS.items():
+        t_model = time.perf_counter()
+        cfg = decoder_config(key)
+        n_texts = cfg.model.one_former.num_object_queries - cfg.model.text_encoder.n_ctx
+        trainer = Trainer(cfg, device=dev)
+        t0 = time.perf_counter()
+        state = trainer.init(seed=0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        seg_b, seq_b = train_batches(0, TRAIN_BATCH, cfg.input.seg_crop_train, cfg.input.depth_hw_train,
+                                     TRAIN_SLOTS, TRAIN_VALID, n_texts, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        named = dict(state.model.named_parameters())
+        params0 = {n: p.detach().clone() for n, p in named.items()}
+        stats0 = {n: b.clone() for n, b in state.model.named_buffers() if "running_" in n}
+
+        def step():
+            return trainer.train_step(state, seg_b, seq_b, gen)[1]
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sequence_msda = depth.startswith("DepthMSDeformAttn")
+        h, w = cfg.input.depth_hw_train
+        seq_grids = tuple((h // st, w // st) for st in (32, 16, 8))  # the deformable encoder's levels, res5 first
+        t0 = time.perf_counter()
+        with cudnn_benchmark_limit(DECODER_CUDNN_BENCHMARK_LIMIT), \
+                (recorded_k3_calls(seq_grids) if sequence_msda else contextlib.nullcontext([])) as k3_seen:
+            step()  # warm-up: cuDNN's benchmark of every new convolution, the allocator
+            torch.cuda.synchronize()
+        warmup_ms = (time.perf_counter() - t0) * 1e3
+        cold_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(*kernel_fns.values())
+        wall_ms, event_ms, metrics = [], [], []
+        for _ in range(N_TRAIN_DECODER_TIMED):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            metrics.append(step())
+            end.record()
+            torch.cuda.synchronize()
+            wall_ms.append((time.perf_counter() - t0) * 1e3)
+            event_ms.append(start.elapsed_time(end))
+        launched[key] = {k: f.launches for k, f in kernel_fns.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        prof = profile_device(step, 1, float(np.median(wall_ms)))
+        profile_s = time.perf_counter() - t0
+        enc = cfg.model.sem_seg_head.transformer_enc_layers
+        msda_calls = enc * (int(pixel.startswith("MSDeformAttn")) + int(sequence_msda))
+        want = {"k1": 0, "k2": msda_calls, "k3": msda_calls, "k4": 0, "k5": 0}
+        losses = {k: [float(m[k]) for m in metrics] for k in metrics[0]}
+        stats = dict(state.model.named_buffers())
+        with_grad = [n for n, p in named.items() if p.grad is not None]
+        frozen = [n for n in stats0 if n.startswith("sem_seg_head.depth_decoder.")]  # DCMNet's
+        checks = {
+            "losses_finite": all(np.isfinite(v).all() for v in losses.values()),
+            "launches": launched[key] == {k: n * N_TRAIN_DECODER_TIMED for k, n in want.items()},
+            "params_with_grad_moved": bool(with_grad) and all(not torch.equal(named[n], params0[n])
+                                                               for n in with_grad),
+            "depth_decoder_bn_stats_as_stored": bool(frozen) == (depth == "DCMNet") and all(
+                torch.equal(stats[n], stats0[n]) for n in frozen),
+            "other_bn_stats_moved": all(not torch.equal(stats[n], v) for n, v in stats0.items() if n not in frozen),
+            "step_count": state.step == N_TRAIN_DECODER_TIMED + 2,
+        }
+        k3_sequence = k3_on_recorded_call(k3_seen) if sequence_msda else None
+        n_params, n_with_grad = len(named), len(with_grad)
+        del trainer, state, named, params0, stats0, stats, seg_b, seq_b, metrics, k3_seen
+        torch.cuda.empty_cache()
+
+        # the small step on the card against the CPU's, the same weights and
+        # draws; and the CPU against itself at one thread
+        watched = WATCHED_SHARED + WATCHED_DECODERS[key]
+        t0 = time.perf_counter()
+        with cudnn_benchmark_limit(DECODER_CUDNN_BENCHMARK_LIMIT):
+            m, grads, _ = small_train_step(Trainer, cfg, dev, watched=watched + UNHELD_DECODERS)
+        card = ({k: float(v) for k, v in m.items()}, {n: v.cpu() for n, v in grads.items()})
+        del m, grads
+        small_s = time.perf_counter() - t0
+        child, path = cpu_steps[key]
+        t0 = time.perf_counter()
+        (cpu,) = finish_children([child], [path], timeout=600)
+        cpu_wait_s = time.perf_counter() - t0
+        ref, *probes = ((cpu[cpu_step_key(spec)]["losses"], cpu[cpu_step_key(spec)]["grads"])
+                        for spec in DECODER_CPU_STEPS)
+        loss_err, grad_err = step_differences(card, ref, watched + UNHELD_DECODERS)
+        noise = {spec: step_differences(probe, ref, watched + UNHELD_DECODERS)
+                 for spec, probe in zip(DECODER_CPU_STEPS[1:], probes)}
+        emit("train_decoders", model=key, pixel_decoder=pixel, depth_decoder=depth, config=TRAIN_ENTRY_CONFIG,
+             overrides=decoder_overrides(key), dtype="float32", tf32=False,
+             batch={"segmentation": [TRAIN_BATCH, *cfg.input.seg_crop_train, 3],
+                    "sequence": [TRAIN_BATCH, 3, *cfg.input.depth_hw_train, 3], "target_slots": TRAIN_SLOTS,
+                    "valid": TRAIN_VALID, "texts": n_texts},
+             init_s=init_s, warmup_ms=warmup_ms, steps_timed=N_TRAIN_DECODER_TIMED, step_wall_ms=wall_ms,
+             step_event_ms=event_ms, kernel_ms_per_step=prof["kernel_ms"],
+             busy_share_untraced=prof["busy_share_untraced"], kernel_launches_per_step=prof["kernel_launches"],
+             top_kernels_ms_per_step=prof["top_kernels_ms"], launches=launched[key], launches_wanted_per_step=want,
+             profile_s=profile_s, parameters=n_params, parameters_with_grad=n_with_grad,
+             cold_step_peak_memory_gb=cold_peak_gb,
+             steady_peak_memory_gb=peak_gb, losses=losses, k3_sequence_vs_plain=k3_sequence,
+             reference_small={"segmentation": [TRAIN_BATCH, 128, 256, 3],
+                              "sequence": [TRAIN_BATCH, 3, *small_seq_hw(cfg.model), 3],
+                              "loss_abs_err": loss_err, "grad_relative_norm_err": grad_err,
+                              "cpu_steps": list(DECODER_CPU_STEPS), "card_step_s": small_s,
+                              "cpu_child_wait_s": cpu_wait_s,
+                              "cpu_vs_cpu_loss_abs_err": {spec: n[0] for spec, n in noise.items()},
+                              "cpu_vs_cpu_grad_relative_norm_err": {spec: n[1] for spec, n in noise.items()},
+                              "unheld": list(UNHELD_DECODERS),
+                              "tolerance": "losses atol 1e-4 + rtol 1e-3; gradients |cuda - cpu| / |cpu| < 1e-3; "
+                                           "or within twice the larger of the CPU's own differences between "
+                                           "2 threads and 1 thread, and 1 thread from images moved by one ulp"},
+             checks=checks, seconds=time.perf_counter() - t_model, card=smi)
+        fail_unless(f"train_decoders {key}", checks)
+        small_step_errors(f"train_decoders {key} small", card, ref, watched, [(p, ref) for p in probes])
+    return launched
+
+
+def tools_phase(dev, smi, kernel_fns):
+    """The port's tools on the card: tools/calc_throughput_torch.py on the
+    default config at its defaults (192x512, 20 targets) but TRAIN_BATCH
+    items a modality and TOOLS_THROUGHPUT_ITERS iterations, and
+    tools/analyze_model_torch.py
+    with every task at its defaults (512x1024, TOOLS_ANALYZE_ITERS
+    forwards). Fails unless the loss is finite, K2 and K3 ran 6 times a
+    step, K2 6 times a forward, and K1, K4 and K5 never. Returns each
+    tool's launches."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+    import analyze_model_torch
+    import calc_throughput_torch
+    from uni_encoder_tpu_torch.config import Config
+
+    cfg = Config()
+    enc = cfg.model.sem_seg_head.transformer_enc_layers
+    t0 = time.perf_counter()
+    reset_launches(*kernel_fns.values())
+    thr = calc_throughput_torch.throughput(cfg, batch=TRAIN_BATCH, iters=TOOLS_THROUGHPUT_ITERS, device=dev)
+    launched = {"calc_throughput": {k: f.launches for k, f in kernel_fns.items()}}
+    throughput_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reset_launches(*kernel_fns.values())
+    ana = analyze_model_torch.analyze(cfg, analyze_model_torch.TASKS, iters=TOOLS_ANALYZE_ITERS, device=dev)
+    launched["analyze_model"] = {k: f.launches for k, f in kernel_fns.items()}
+    analyze_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    checks = {
+        "throughput_loss_finite": bool(np.isfinite(thr["loss"])),
+        "throughput_launches": launched["calc_throughput"] == {
+            "k1": 0, "k2": enc * TOOLS_THROUGHPUT_ITERS, "k3": enc * TOOLS_THROUGHPUT_ITERS, "k4": 0, "k5": 0},
+        "analyze_launches": launched["analyze_model"] == {"k1": 0, "k2": enc * ana["forwards"], "k3": 0, "k4": 0,
+                                                          "k5": 0},
+        "analyze_fields": ana["params_total"] > 0 and ana["flops"] > 0 and ana["activation_peak_bytes"] > 0,
+    }
+    emit("tools", calc_throughput={"config": "default", "batch": TRAIN_BATCH, "hw": [192, 512], "targets": 20,
+                                   "iters": TOOLS_THROUGHPUT_ITERS, "img_per_s": thr["img_per_s"],
+                                   "ms_per_step": thr["ms_per_step"], "loss": thr["loss"], "seconds": throughput_s},
+         analyze_model={"config": "default", "hw": [512, 1024], "dtype": cfg.model.dtype,
+                        "params_m": ana["params_total"] / 1e6, "params_sequence_heads_m":
+                        ana["params_sequence_heads"] / 1e6, "gflop": ana["flops"] / 1e9,
+                        "activation_peak_gb": ana["activation_peak_bytes"] / 1e9, "ms_per_img": ana["ms_per_img"],
+                        "forwards": ana["forwards"], "seconds": analyze_s},
+         launches=launched, tf32=False, checks=checks, card=smi)
+    fail_unless("tools", checks)
     return launched
 
 
@@ -2117,7 +2500,6 @@ def decoders_phase(dev, smi, kernel_fns):
     compare_msda's tolerance). Then each model fp32 on the card against the CPU
     (card_against_cpu), and the modules no config selects
     (offpath_modules_against_cpu). Returns each model's launches."""
-    from uni_encoder_tpu_torch.config import load_config
     from uni_encoder_tpu_torch.data.tokenizer import tokenize_task
     from uni_encoder_tpu_torch.inference.fused_postprocess import deinterleave_phases_np, fused_multitask_inference
     from uni_encoder_tpu_torch.models.oneformer import UniEncoder
@@ -2127,8 +2509,8 @@ def decoders_phase(dev, smi, kernel_fns):
     checks = {}
     for key, (pixel, depth) in DECODER_MODELS.items():
         t_model = time.perf_counter()
-        overrides = [f"model.sem_seg_head.pixel_decoder_name={pixel}", f"model.sem_seg_head.depth_decoder_name={depth}"]
-        cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), TRAIN_ENTRY_CONFIG), overrides).model
+        overrides = decoder_overrides(key)
+        cfg = decoder_config(key).model
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -3100,6 +3482,15 @@ def main():
         raise AssertionError("K5's SASS holds no HMMA: its 3xTF32 products are not on tensor cores")
 
     results = {}
+    # train_backbones' DiNAT-L small step and train_decoders' small steps on
+    # the CPU run in children from here on (up to 9 cores for the first
+    # minute, then 6 and fewer), beside the card's phases up to train, which
+    # drive it from one core
+    dinat_cpu_steps = start_cpu_steps(
+        "train_dinat", os.path.join(os.path.dirname(os.path.abspath(__file__)), BACKBONE_CONFIGS["dinat"]),
+        DINAT_CPU_THREADS, 1)
+    decoder_cpu_steps = {key: start_cpu_steps(f"train_decoders_{key}", DECODER_CHILD_CONFIG + key,
+                                              ",".join(DECODER_CPU_STEPS))[0] for key in DECODER_MODELS}
 
     # ------------------------------------------------- K1 against its plain
     Q, K, h, w = 150, 19, SEG_H // 4, SEG_W // 4
@@ -3625,15 +4016,12 @@ def main():
 
     # ---- small input: one training step on the GPU against the CPU path, fp32
     # with TF32 off, the same weights (seed 0) and the same draws
+    # (held below, beside train_deterministic's one-thread CPU step)
     small = {}
     for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
         m, grads, _ = small_train_step(Trainer, train_cfg, d)
         small[name] = ({k: float(v) for k, v in m.items()}, {n: v.cpu() for n, v in grads.items()})
         del m, grads
-    loss_err, grad_err = small_step_errors("train_reference_small", small["cuda"], small["cpu"])
-    emit("train_reference_small", segmentation=[TRAIN_BATCH, 128, 256, 3], sequence=[TRAIN_BATCH, 3, 64, 128, 3],
-         dtype="float32", loss_abs_err=loss_err, grad_relative_norm_err=grad_err,
-         tolerance="losses atol 1e-4 + rtol 1e-3; gradients |cuda - cpu| / |cpu| < 1e-3")
 
     # The small Swin-T step on the CPU at one thread runs in a child, on one
     # core, beside the deterministic children only: the CPU's own spread
@@ -3664,11 +4052,21 @@ def main():
     (swin_one_thread,) = finish_children([swin_noise_child], [swin_noise_path], timeout=600)
     noise_wait_s = time.perf_counter() - t1
     yardsticks["k4"] = time_yardstick(yardsticks["k4"], torch.inference_mode)
-    noise = (swin_one_thread["losses"], swin_one_thread["grads"])
+    noise = (swin_one_thread[1]["losses"], swin_one_thread[1]["grads"])
     det = ({k: float(v) for k, v in runs[0]["losses"].items()}, runs[0]["grads"])
     cpu_steps = (noise, small["cpu"])
-    det_loss_err, det_grad_err = small_step_errors("train_deterministic", det, small["cuda"], WATCHED, cpu_steps)
+    # the card's small step against the CPU's: the same rule as the
+    # deterministic step's and train_backbones' (the motion decoder's
+    # gradient moves by about 1e-3 with the order of fp32 sums alone)
+    loss_err, grad_err = small_step_errors("train_reference_small", small["cuda"], small["cpu"], WATCHED, cpu_steps)
     noise_loss, noise_grad = step_differences(*cpu_steps, WATCHED)
+    emit("train_reference_small", segmentation=[TRAIN_BATCH, 128, 256, 3], sequence=[TRAIN_BATCH, 3, 64, 128, 3],
+         dtype="float32", loss_abs_err=loss_err, grad_relative_norm_err=grad_err,
+         cpu_threads=[torch.get_num_threads(), 1], cpu_vs_cpu_loss_abs_err=noise_loss,
+         cpu_vs_cpu_grad_relative_norm_err=noise_grad,
+         tolerance="losses atol 1e-4 + rtol 1e-3; gradients |cuda - cpu| / |cpu| < 1e-3; or within twice the "
+                   "CPU's own difference at 1 thread against the other count")
+    det_loss_err, det_grad_err = small_step_errors("train_deterministic", det, small["cuda"], WATCHED, cpu_steps)
     emit("train_deterministic", children=len(paths), concurrent=True, cublas_workspace_config=workspace,
          child_step_s=[r["seconds"] for r in runs], byte_equal=equal,
          children_s_with_dinat_steps=children_s,
@@ -3688,7 +4086,16 @@ def main():
     kernel_fns = {"k1": fused_postprocess_cuda, "k2": ms_deform_attn_fused_cuda,
                   "k3": ms_deform_attn_fused_backward_cuda, "k4": neighborhood_attention_2d_cuda,
                   "k5": neighborhood_attention_2d_backward_cuda}
-    train_backbone_launches = train_backbones_phase(dev, smi, kernel_fns, dinat_deterministic, workspace)
+    train_backbone_launches = train_backbones_phase(dev, smi, kernel_fns, dinat_deterministic, workspace,
+                                                    dinat_cpu_steps)
+    torch.cuda.empty_cache()
+
+    # ---------------- training with the other pixel and depth decoders
+    train_decoder_launches = train_decoders_phase(dev, smi, kernel_fns, decoder_cpu_steps)
+    torch.cuda.empty_cache()
+
+    # ---------------- the throughput and model-analysis tools
+    tools_launches = tools_phase(dev, smi, kernel_fns)
     torch.cuda.empty_cache()
 
     # ---------------- the training entry point: the production config, full
@@ -3745,7 +4152,9 @@ def main():
     # two evaluate_torch runs (phase eval), backbones_launches those of the
     # three configs' served requests (phase backbones), train_backbones_launches
     # those of the three configs' timed training steps (phase
-    # train_backbones), demo_launches those of the two demo_torch runs (phase
+    # train_backbones), train_decoders_launches those of the three decoder
+    # models' timed steps (phase train_decoders), tools_launches those of the
+    # two tools' runs (phase tools), demo_launches those of the two demo_torch runs (phase
     # demo), ade20k_eval_launches those of the two ADE20K evaluate_torch runs
     # (phase eval_ade20k); K4's launches are the DiNAT config's served requests',
     # both kinds, K5's the DiNAT config's timed training steps'
@@ -3773,6 +4182,8 @@ def main():
                      "backbones_launches": {name: {kind: n[key] for kind, n in per.items()}
                                             for name, per in backbone_launches.items()},
                      "train_backbones_launches": {name: n[key] for name, n in train_backbone_launches.items()},
+                     "train_decoders_launches": {name: n[key] for name, n in train_decoder_launches.items()},
+                     "tools_launches": {name: n[key] for name, n in tools_launches.items()},
                      "demo_launches": {name: n[key] for name, n in demo_launches.items()},
                      "decoders_launches": {name: {kind: n[key] for kind, n in per.items()}
                                            for name, per in decoder_launches.items()},

@@ -4,8 +4,9 @@ neither PIL, cv2 nor matplotlib when it is imported.
 tests/conftest.py imports jax for every test, so the import check runs in a
 fresh interpreter; a source scan backs it up for imports that only run
 inside functions. The port's sources, `evaluate_torch.py`, `train_torch.py`,
-`demo_torch.py`, `tools/convert_checkpoint_torch.py`, `chip_smoke.py` and
-`k5_variants.py` are checked. PIL and cv2 are imported inside functions in
+`demo_torch.py`, `tools/convert_checkpoint_torch.py`,
+`tools/calc_throughput_torch.py`, `tools/analyze_model_torch.py`,
+`chip_smoke.py` and `k5_variants.py` are checked. PIL and cv2 are imported inside functions in
 named places only (CALL_TIME_IMPORTS: JPEG files, the demo's text labels,
 COCO polygons), matplotlib nowhere, and the train mappers import neither
 PIL nor cv2 when they run.
@@ -30,6 +31,8 @@ import evaluate_torch
 import k5_variants
 import train_torch
 sys.path.insert(0, "tools")
+import analyze_model_torch
+import calc_throughput_torch
 import convert_checkpoint_torch
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "flax", "jaxlib", "uni_encoder_tpu", "PIL", "cv2", "matplotlib"))
@@ -56,6 +59,8 @@ def _sources():
     yield os.path.join(REPO, "k5_variants.py")
     yield os.path.join(REPO, "demo_torch.py")
     yield os.path.join(REPO, "tools", "convert_checkpoint_torch.py")
+    yield os.path.join(REPO, "tools", "calc_throughput_torch.py")
+    yield os.path.join(REPO, "tools", "analyze_model_torch.py")
 
 
 # the only places that import PIL or cv2, each inside the function that needs it

@@ -3,7 +3,8 @@
 within atol 1e-4 + rtol 1e-3 and a gradient within 1e-3 relative norm, or,
 given the CPU's step at one thread and at this process's count
 (`cpu_steps`), within twice their difference. No fixed tolerance moves with
-that spread. And its rule for one output of the card against the CPU
+that spread (or, given several CPU pairs, twice the largest of their
+differences). And its rule for one output of the card against the CPU
 (`small_output_check`).
 """
 
@@ -59,6 +60,47 @@ def test_loss_within_twice_the_cpu_spread(loss_err, ok):
     else:
         with pytest.raises(AssertionError, match="rule loss"):
             chip_smoke.small_step_errors("rule", got, REF, W, cpu_steps=cpu_steps)
+
+
+@pytest.mark.parametrize("grad_err,ok", [(5.9e-3, True), (6.1e-3, False)])
+def test_largest_of_several_cpu_spreads(grad_err, ok):
+    """With a list of CPU pairs (train_decoders: 1 thread, and 1 thread from
+    ulp-moved images, each against 2 threads), a quantity may differ by
+    twice the largest of their differences: here 3e-3, from the second."""
+    cpu_n = step(2.0, 0.0, -1.0)
+    probes = [(step(2.0, 1e-3, -1.0), cpu_n), (step(2.0, -3e-3, -1.0), cpu_n)]
+    got = step(2.0, grad_err)
+    if ok:
+        chip_smoke.small_step_errors("rule", got, REF, W, cpu_steps=probes)
+    else:
+        with pytest.raises(AssertionError, match="the CPU against itself: 0.003"):
+            chip_smoke.small_step_errors("rule", got, REF, W, cpu_steps=probes)
+
+
+@pytest.mark.parametrize("planted,ok", [(0.0, True), (0.01, False), (-0.01, False)])
+def test_train_reference_small_catches_a_motion_gradient_planted_1_percent_off(planted, ok):
+    """train_reference_small's rule on the numbers of a card run (H100):
+    the motion decoder's gradient 3.76e-4 from the CPU's at 8 threads, the
+    CPU's own step at one thread 1.17e-3 from it, so the bound is twice
+    that, 2.34e-3. The card's gradient planted 1% high (or low) fails."""
+    name = "motion_decoder.conv5.0.weight"
+    rng = torch.Generator().manual_seed(0)
+    g = torch.randn(4096, generator=rng, dtype=torch.float64)
+    direction = torch.randn(4096, generator=rng, dtype=torch.float64)
+    direction /= direction.norm()
+
+    def moved(rel):  # g moved by `rel` of its norm, orthogonally to the plant
+        return g + rel * g.norm() * direction
+
+    cpu_n = ({"loss": 2.0}, {name: g})
+    cpu_1 = ({"loss": 2.0}, {name: moved(1.17e-3)})
+    card = ({"loss": 2.0}, {name: moved(3.76e-4) * (1 + planted)})
+    if ok:
+        _, grad = chip_smoke.small_step_errors("train_reference_small", card, cpu_n, (name,), (cpu_1, cpu_n))
+        assert grad[name] == pytest.approx(3.76e-4, rel=1e-6)
+    else:
+        with pytest.raises(AssertionError, match="train_reference_small grad motion_decoder"):
+            chip_smoke.small_step_errors("train_reference_small", card, cpu_n, (name,), (cpu_1, cpu_n))
 
 
 # chip_smoke.py's card-against-CPU rule for one output (`small_output_check`),

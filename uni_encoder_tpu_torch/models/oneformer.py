@@ -32,7 +32,7 @@ those names loads with `load_state_dict(strict=True)`.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -48,6 +48,7 @@ from .layers import MLP, random_init_
 from .motion_decoder import MotionDecoderV2
 from .pixel_decoders.dcmnet import DCMNet
 from .pixel_decoders.fpn import (
+    IN_FEATURES as FPN_IN_FEATURES,
     BasePixelDecoder,
     DepthTransformerEncoderPixelDecoder,
     TransformerEncoderPixelDecoder,
@@ -109,6 +110,35 @@ def build_backbone(cfg: ModelConfig) -> nn.Module:
 SEGMENTATION_DECODERS = ("MSDeformAttnPixelDecoder", "BasePixelDecoder", "TransformerEncoderPixelDecoder")
 DEPTH_DECODERS = ("TransDSSL", "DepthMSDeformAttnPixelDecoder", "DepthTransformerEncoderPixelDecoder", "DCMNet",
                   "MonodepthDecoder")
+# the input stride of each backbone feature the depth decoders read
+FEATURE_STRIDES = {"res2": 4, "res3": 8, "res4": 16, "res5": 32}
+
+
+def disparity_strides(cfg: ModelConfig) -> Tuple[int, ...]:
+    """The input stride of each disparity scale s < `num_depth_scales` that
+    the depth decoder `cfg.sem_seg_head.depth_decoder_name` emits, as its
+    forward sets it: 2^s for TransDSSL and MonodepthDecoder (scale 0 at
+    full resolution), 2^(s+1) for DCMNet (an FPN output resized to twice
+    its size), and the strides of their levels, finest first, for the
+    DepthTransformerEncoder (res2..res5) and DepthMSDeformAttn (res2 and
+    the deformable encoder's features) decoders. A scale of an (H, W)
+    input is (H // stride, W // stride) where H and W are multiples of 32."""
+    h = cfg.sem_seg_head
+    name = h.depth_decoder_name
+    if name in ("TransDSSL", "MonodepthDecoder"):
+        strides = [1, 2, 4, 8]
+    elif name == "DCMNet":
+        strides = [2, 4, 8, 16]
+    elif name == "DepthTransformerEncoderPixelDecoder":
+        strides = [FEATURE_STRIDES[f] for f in FPN_IN_FEATURES]
+    elif name == "DepthMSDeformAttnPixelDecoder":
+        features = ("res2",) + tuple(h.deformable_transformer_encoder_in_features)
+        strides = sorted(FEATURE_STRIDES[f] for f in features)
+    else:
+        raise ValueError(f"unknown depth_decoder_name {name!r}: one of {', '.join(DEPTH_DECODERS)}")
+    if cfg.num_depth_scales > len(strides):
+        raise ValueError(f"{name} emits {len(strides)} disparity scales; num_depth_scales is {cfg.num_depth_scales}")
+    return tuple(strides[: cfg.num_depth_scales])
 
 
 def build_pixel_decoder(cfg: ModelConfig, depth: bool, backbone: nn.Module) -> nn.Module:

@@ -20,6 +20,17 @@ is the global batch's; m_sparsity's static threshold (a mean over the
 batch's pixels per frame), its count of static pixels and its `all` over
 the batch are the global batch's, summed over the ranks.
 
+Each scale is its disparity's size: the motion decoders emit scale s at
+stride 2^s, as TransDSSL emits its disparity, while DCMNet's disparity of
+scale s comes at stride 2^(s+1) and the DepthTransformerEncoder and
+DepthMSDeformAttn decoders' at 2^(s+2). The loss first resizes each scale's
+complete flow, motion mask and motion probability (bilinear) to that
+scale's disparity; then it is the JAX copy's. Where the sizes agree
+(TransDSSL) nothing is resized and the loss is the JAX copy's as it
+stands; where they differ the JAX copy fails (it multiplies maps of both
+sizes), so the port departs from it there, and its tests hold it against
+the JAX loss given the resized maps.
+
 The photometric warp runs batched over (frame, scale, batch) at full
 resolution. The RANSAC ground plane fits every candidate plane of a scale at
 once (batched 3x3 `torch.linalg.inv`). The identity noise and the RANSAC
@@ -59,6 +70,7 @@ RANSAC_ITERS = 100
 RANSAC_POINTS = 5
 RANSAC_TOL = 0.005
 GROUND_PRIOR = 0.4  # the lowest 40% of the rows hold the candidate ground points
+MOTION_KEYS = ("complete_flow", "motion_mask", "motion_prob")  # the motion decoders' per-scale maps
 
 
 def ground_rows(h: int) -> int:
@@ -136,6 +148,11 @@ def _up(x, H, W):
     return interpolate(x, size=(H, W), mode="bilinear", align_corners=False)
 
 
+def _at_size(x, hw):
+    """`x` (B, h, w, C) resized to `hw` (bilinear), or as it is at that size."""
+    return x if tuple(x.shape[1:3]) == tuple(hw) else interpolate(x, size=hw, mode="bilinear", align_corners=False)
+
+
 def monodepth_loss(
     outputs: Dict,
     targets: Dict,
@@ -147,11 +164,12 @@ def monodepth_loss(
 ) -> Dict[str, torch.Tensor]:
     """
     outputs (UniEncoder.forward_sequence_train):
-      disps:          {scale: (B, h_s, w_s, 1)} sigmoid disparity (scale 0 = full res)
+      disps:          {scale: (B, h_s, w_s, 1)} sigmoid disparity (scale 0 the finest)
       cam_T_cam:      {frame_id: (B, 4, 4)}
-      complete_flow:  {(frame_id, scale): (B, h_s, w_s, 3)}
-      motion_mask:    {(frame_id, scale): (B, h_s, w_s, 1)} sigmoid
-      motion_prob:    {(frame_id, scale): (B, h_s, w_s, 1)}
+      complete_flow:  {(frame_id, scale): (B, H / 2^s, W / 2^s, 3)}
+      motion_mask:    {(frame_id, scale): (B, H / 2^s, W / 2^s, 1)} sigmoid
+      motion_prob:    {(frame_id, scale): (B, H / 2^s, W / 2^s, 1)}
+      (the three resized to (h_s, w_s) where they differ)
     targets:
       color:          {frame_id (incl. 0): (B, H, W, 3)} photometric frames
       K, inv_K:       (B, 4, 4)
@@ -165,6 +183,8 @@ def monodepth_loss(
     sizes = [tuple(outputs["disps"][s].shape[1:3]) for s in range(S)]
     if draws["n_ground"] != [ground_rows(h) * w for h, w in sizes]:
         raise ValueError(f"draws made for ground-point counts {draws['n_ground']}, the scales are {sizes}")
+    outputs = dict(outputs, **{key: {(f, s): _at_size(x, sizes[s]) for (f, s), x in outputs[key].items()}
+                               for key in MOTION_KEYS})
 
     ramp = min(max(3.0 * float(step) / ramp_steps, 0.0), 1.0)
     coefs = {k: (v * ramp if k in RAMPED else v) for k, v in COEFS.items()}

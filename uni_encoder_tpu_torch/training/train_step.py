@@ -16,7 +16,8 @@ with its BatchNorm statistics; `TrainState.opt` the optimizer's moments.
 Random draws: `Trainer.make_draws` takes every random number of a step from
 one `torch.Generator`, in a fixed order (the backbone's keep masks of the
 segmentation and the sequence pass, the criterion's points per prediction
-set, the monodepth noise and RANSAC indices per scale), so that a step is
+set, the monodepth noise and RANSAC indices per scale, each scale at the
+size of the depth decoder's disparity there), so that a step is
 reproducible and its draws can be handed to another implementation. Keep
 masks, block by block in the backbone's order, rates on a linspace from 0
 to the backbone's `drop_path_rate` over all blocks, a block's mask 1 with
@@ -65,7 +66,7 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..models.oneformer import UniEncoder
+from ..models.oneformer import UniEncoder, disparity_strides
 from ..parallel import mesh
 from . import monodepth
 from .criterion import SetCriterion
@@ -274,15 +275,19 @@ class Trainer:
         B = seg_batch["images"].shape[0] * world
         Bs, H, W = seq_batch["images"].shape[:3]
         Bs *= world
-        S = self.model_cfg.num_depth_scales
         return {
             "drop_seg": keep_masks(B),
             "drop_seq": keep_masks(3 * Bs),
             "criterion": self.criterion.make_draws(generator, self.n_prediction_sets(), B,
                                                    seg_batch["labels"].shape[1], device),
-            "monodepth": monodepth.make_draws(generator, Bs, H, W, [(H >> s, W >> s) for s in range(S)],
-                                              2, device),
+            "monodepth": monodepth.make_draws(generator, Bs, H, W, self.disparity_sizes(H, W), 2, device),
         }
+
+    def disparity_sizes(self, height: int, width: int) -> List[Tuple[int, int]]:
+        """The size of each disparity scale the depth decoder emits for a
+        (height, width) frame: its strides (`disparity_strides`), so the
+        draws are made before the forward."""
+        return [(height // s, width // s) for s in disparity_strides(self.model_cfg)]
 
     @staticmethod
     def shard_draws(draws: Dict, rank: int, world: int) -> Dict:
