@@ -15,7 +15,7 @@ predictor, sequence_reference_small, train, train_deterministic,
 train_reference_small, train_backbones (one line per config),
 train_decoders (one line per model), tools, train_entry, eval, backbones
 (one line per config), decoders (one line per model, one for the modules
-no config selects), convert, demo, eval_ade20k and multi_device.
+no config selects), convert, demo, eval_ade20k, spatial and multi_device.
 Each line carries `elapsed_s`, the seconds since the script started.
 Then the card's name and power limit as nvidia-smi reports them, the
 {"kernels": [...]} line, and last {"ok": true, "device": {...}}. Any failure
@@ -231,6 +231,24 @@ Cityscapes tree (2 val images, 2 depth frames, random weights from seed
 predictions whose digests equal the one process's. Two processes
 time-sharing one card measure no scaling.
 
+The phase `spatial` splits one image by rows over ranks
+(`uni_encoder_tpu_torch/parallel/spatial.py`) in child processes
+(`--spatial-child`), started before `convert`, each setting up the default
+Swin-T model at full width (random weights from seed 0) and a 1024x2048
+image: first one process (`forward_segmentation`), then SPATIAL_WORLD gloo
+ranks sharing the card (`spatial_inference`). Each takes one fp32 forward
+(TF32 off), then a bf16 warm-up request and SPATIAL_REQUESTS timed ones.
+It fails unless the ranks' fp32 outputs equal the one process's within
+the `backbones` end-to-end rule (SPATIAL_ATOL, SPATIAL_RTOL), K2 ran 6
+times a request in every process and no other kernel did, K2 on rank 0's
+scattered queries (its rows of each level: Lq = 21504 of S = 43008) agrees
+with its plain version, K1's maps of rank 0's gathered bf16 outputs are
+within 3e-3 of the one process's (the semantic map at bf16, the panoptic
+map at bf16 or fp32), and each rank's peak memory is at most
+SPATIAL_PEAK_SHARE of the one process's at the same request. It reports
+each process's request ms, peak, and the all-reduces' seconds, calls and
+bytes; two ranks time-sharing one card measure no latency gain.
+
 Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of HBM, 67 TFLOP/s
 of fp32 outside the tensor cores, 495 TFLOP/s of TF32 and 989 TFLOP/s of
 bf16 on them (at the 700 W power limit). K1 runs its semantic product on
@@ -333,6 +351,16 @@ MD_EVAL_IMAGES = 2  # synthetic val images and depth frames (1 a rank)
 MD_LOSS_RTOL, MD_D_GROUND_RTOL = 1e-5, 2e-3
 MD_GRAD_RTOL, MD_BN_RTOL = 1e-4, 1e-4
 MD_UPDATE_GAIN, MD_PARAM_LRS = 4.0, 2.0
+SPATIAL_CHILD = "--spatial-child"
+SPATIAL_WORLD = 2  # gloo ranks sharing the one card, each holding half of the image's rows
+SPATIAL_REQUESTS = 3  # bf16 requests timed per process, after one warm-up
+# the partitioned fp32 forward against the one-process fp32 forward, both on
+# the card, TF32 off: end to end at the `backbones` rule (atol 5e-3, rtol
+# 1e-3 for all but SMALL_PRED_OUTLIERS of the elements, each of those within
+# SMALL_PRED_MAX_ERR: the query decoder's masked attention thresholds its
+# own mask logits, and another order of fp32 sums can flip a mask bit)
+SPATIAL_ATOL, SPATIAL_RTOL = 5e-3, 1e-3
+SPATIAL_PEAK_SHARE = 0.75  # a rank's peak against the one-process peak at the same bf16 request
 DEFAULT_CONFIG = "default"  # a child's config argument for the default Swin-T model
 TRAIN_ENTRY_CONFIG = "configs/cityscapes_swin_unified.yaml"  # the production Swin-T config, read without PyYAML
 TRAIN_ENTRY_ITERS, TRAIN_ENTRY_ITEMS = 4, 4  # iterations (of 90 000); synthetic items per training split
@@ -2913,21 +2941,22 @@ def fingerprints(state):
 
 
 def timed_collectives():
-    """Time every sum all-reduce of `parallel/mesh.py` (fenced by
-    synchronization) and the gradients' one apart; returns the running
-    totals."""
+    """Time every all-reduce of `parallel/mesh.py` (fenced by
+    synchronization; their calls and bytes counted) and the gradients' one
+    apart; returns the running totals."""
     from uni_encoder_tpu_torch.parallel import mesh
 
-    totals = {"calls": 0, "s": 0.0, "gradients_s": 0.0}
+    totals = {"calls": 0, "s": 0.0, "bytes": 0, "gradients_s": 0.0}
     all_reduce, gradients = mesh._all_reduce_, mesh.all_reduce_gradients
 
-    def timed(x):
+    def timed(x, *args):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = all_reduce(x)
+        out = all_reduce(x, *args)
         torch.cuda.synchronize()
         totals["calls"] += 1
         totals["s"] += time.perf_counter() - t0
+        totals["bytes"] += x.numel() * x.element_size()
         return out
 
     def timed_gradients(params):
@@ -3400,6 +3429,233 @@ def multi_device_phase(dev, smi, started, meanwhile=lambda: None):
     shutil.rmtree(work, ignore_errors=True)
     return {"train_per_rank_per_step": [r["steps"][-1]["launches"] for r in ranks],
             "eval_per_rank": {role: e["launches"] for role, e in evals.items()}}
+
+
+def spatial_child(out_path, role, rendezvous):
+    """A child of phase spatial: `role` rank<r>, a gloo rank of SPATIAL_WORLD
+    on the card running `spatial_inference` on its rows of the image, or
+    one, the one-process `forward_segmentation`. The default Swin-T model at
+    full width (random weights from seed 0, the class head x8 as in serve)
+    and a 1024x2048 image from seed 0 are set up first; at the go file: one
+    fp32 forward (TF32 off), then in bf16 a warm-up request (rank 0's first
+    K2 call, on its scattered queries, recorded and held against K2's plain
+    version) and SPATIAL_REQUESTS timed ones, with every kernel's launches,
+    the all-reduces' seconds, calls and bytes, and the peak memory of the
+    timed requests. Saves the fp32 outputs (a rank's rows of the masks) and
+    the last bf16 request's logits and whole masks (`gather_rows` on the
+    ranks) to `out_path`."""
+    from unittest import mock
+
+    from uni_encoder_tpu_torch.config import Config
+    from uni_encoder_tpu_torch.data.tokenizer import tokenize_task
+    from uni_encoder_tpu_torch.models.oneformer import UniEncoder
+    from uni_encoder_tpu_torch.ops.ms_deform_attn import ms_deform_attn_fused_cuda, ms_deform_attn_fused_plain
+    from uni_encoder_tpu_torch.parallel import mesh, spatial
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    ranked = role != "one"
+    if ranked:
+        mesh.init_process_group("gloo", int(role[len("rank"):]), SPATIAL_WORLD, "file://" + rendezvous)
+    t0 = time.perf_counter()
+    model = UniEncoder(Config().model, device=dev, seed=0)
+    with torch.no_grad():
+        model.predictor.class_embed.weight.mul_(8.0)
+    images = torch.from_numpy(np.random.RandomState(0).randn(1, SEG_H, SEG_W, 3).astype(np.float32)).to(dev)
+    tokens = torch.tensor([tokenize_task(TASK)], dtype=torch.int64, device=dev)
+    setup_s = time.perf_counter() - t0
+
+    def request(x):
+        if ranked:
+            return spatial.spatial_inference(model, x, tokens)
+        return model.forward_segmentation(x, tokens)
+
+    wait_for(os.path.join(os.path.dirname(out_path), ("go_ranks" if ranked else "go_one")))
+    result = {"setup_s": setup_s}
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        out = request(images)
+        torch.cuda.synchronize()
+        result["fp32"] = {"pred_logits": out["pred_logits"].cpu(), "pred_masks": out["pred_masks"].cpu(),
+                          "rows": out.get("rows", (0, SEG_H // 4)), "seconds": time.perf_counter() - t0}
+        del out
+        model.to(torch.bfloat16)
+        images = images.to(torch.bfloat16)
+        recorded = []
+
+        def record(value, shapes, offsets, logits, ref_abs):
+            if not recorded:
+                recorded.append((value, shapes, offsets, logits, ref_abs))
+            return ms_deform_attn_fused(value, shapes, offsets, logits, ref_abs)
+
+        ms_deform_attn_fused = spatial.ms_deform_attn_fused
+        t0 = time.perf_counter()
+        with mock.patch.object(spatial, "ms_deform_attn_fused", record):
+            request(images)
+        torch.cuda.synchronize()
+        result["warmup_ms"] = (time.perf_counter() - t0) * 1e3
+        if ranked:
+            value, shapes, offsets, logits, ref_abs = recorded[0]
+            result["k2_scattered_queries"] = {
+                "max_abs_err": compare_msda(ms_deform_attn_fused_cuda(value, shapes, offsets, logits, ref_abs),
+                                            ms_deform_attn_fused_plain(value, shapes, offsets, logits, ref_abs),
+                                            fp32=False),
+                "Lq": int(ref_abs.shape[1]), "S": int(value.shape[1]), "dtype": "bfloat16",
+                "level_grids": [list(hw) for hw in shapes]}
+        del recorded
+        wrappers = kernel_wrappers()
+        totals = timed_collectives() if ranked else {"calls": 0, "s": 0.0, "bytes": 0}
+        reset_launches(*wrappers.values())
+        torch.cuda.reset_peak_memory_stats(dev)
+        request_ms = []
+        for _ in range(SPATIAL_REQUESTS):
+            t0 = time.perf_counter()
+            out = request(images)
+            torch.cuda.synchronize()
+            request_ms.append((time.perf_counter() - t0) * 1e3)
+        result.update(request_ms=request_ms, peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                      launches={k: w.launches for k, w in wrappers.items()}, collectives=dict(totals),
+                      weights_gb=sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9)
+        masks = (spatial.gather_rows(out["pred_masks"], out["rows"], out["height"]) if ranked
+                 else out["pred_masks"])
+        if role in ("rank0", "one"):
+            result["bf16"] = {"pred_logits": out["pred_logits"].cpu(), "pred_masks": masks.cpu()}
+    if ranked:
+        mesh.destroy_process_group()
+    torch.save(result, out_path)
+
+
+def start_spatial():
+    """Start phase spatial's children (`SPATIAL_CHILD`): SPATIAL_WORLD gloo
+    ranks and one process, each setting up its model and image and then
+    waiting for its go file, so that their start-up overlaps the phases
+    before it (≈1 GB of the card each until then)."""
+    from uni_encoder_tpu_torch import kernels
+
+    work = os.path.join(os.path.dirname(kernels.BUILD_DIR), "spatial")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    children = {}
+    for role in [f"rank{r}" for r in range(SPATIAL_WORLD)] + ["one"]:
+        path = os.path.join(work, f"{role}.pt")
+        children[role] = (start_child(SPATIAL_CHILD, path, role, os.path.join(work, "rendezvous")), path)
+        kill_at_exit(children[role][0])
+    return {"work": work, "children": children}
+
+
+def spatial_phase(dev, smi, started):
+    """One 1024x2048 image split by rows over SPATIAL_WORLD gloo ranks
+    sharing the card (`uni_encoder_tpu_torch/parallel/spatial.py`), in
+    child processes (`spatial_child`): first the one-process child, then
+    the ranks. Fails unless the ranks' fp32 logits are the same bytes, the
+    partitioned fp32 forward equals the one-process one within SPATIAL_ATOL,
+    SPATIAL_RTOL (the `backbones` end-to-end rule), each process ran K2 6
+    times a request and no other kernel, K2 on rank 0's scattered queries
+    agrees with its plain version, the semantic map that K1 makes of rank
+    0's gathered bf16 outputs mismatches the one-process bf16 request's in
+    under 3e-3 of the pixels (K1's map tolerance), its panoptic map
+    mismatches the one process's in under 3e-3 of the pixels at bf16 or at
+    fp32 (a segment whose keep or overlap decision lies within rounding of
+    its threshold goes either way between two orders of bf16 sums, as
+    between the one process's two precisions: the line counts the segments
+    each side keeps), and each
+    rank's peak is at most SPATIAL_PEAK_SHARE of the one-process peak. Two
+    ranks time-sharing one card through gloo's host path measure no latency
+    gain: the request ms and the collectives' share are what this layout
+    costs. Returns every kernel's launches per process."""
+    from uni_encoder_tpu_torch.config import Config
+    from uni_encoder_tpu_torch.inference.fused_postprocess import fused_multitask_inference
+
+    t_phase = time.perf_counter()
+    children, work = started["children"], started["work"]
+    roles = [f"rank{r}" for r in range(SPATIAL_WORLD)]
+    open(os.path.join(work, "go_one"), "w").close()
+    done = dict(zip(["one"], finish_children([children["one"][0]], [children["one"][1]], timeout=600)))
+    open(os.path.join(work, "go_ranks"), "w").close()
+    done.update(zip(roles, finish_children([children[r][0] for r in roles], [children[r][1] for r in roles],
+                                           timeout=600)))
+    one, ranks = done["one"], [done[r] for r in roles]
+
+    cfg = Config().model
+    n_layers, Q, K = cfg.sem_seg_head.transformer_enc_layers, cfg.one_former.num_object_queries, \
+        cfg.sem_seg_head.num_classes
+    masks = torch.cat([r["fp32"]["pred_masks"] for r in ranks], dim=2)
+    logits_fields, logits_ok = small_output_check(ranks[0]["fp32"]["pred_logits"], one["fp32"]["pred_logits"],
+                                                  SPATIAL_ATOL, SPATIAL_RTOL, outliers=True)
+    masks_fields, masks_ok = small_output_check(masks, one["fp32"]["pred_masks"], SPATIAL_ATOL, SPATIAL_RTOL,
+                                                outliers=True)
+    # K1 at the served thresholds on rank 0's gathered bf16 outputs, on the
+    # one process's bf16 request, and on the one process's fp32 forward (its
+    # masks cast to bf16): a query whose keep or overlap decision lies within
+    # rounding of its threshold goes either way between two orders of bf16
+    # sums, as between the one process's two precisions
+    thing = torch.isin(torch.arange(K), torch.arange(11, 19)).to(dev)
+    kw = dict(object_mask_threshold=0.8, overlap_threshold=0.8, topk=Q)
+    post = {name: fused_multitask_inference(logits[0].to(dev), masks_[0].to(dev, torch.bfloat16), thing, **kw)
+            for name, logits, masks_ in (
+                ("rank0_bf16", ranks[0]["bf16"]["pred_logits"], ranks[0]["bf16"]["pred_masks"]),
+                ("one_bf16", one["bf16"]["pred_logits"], one["bf16"]["pred_masks"]),
+                ("one_fp32", one["fp32"]["pred_logits"], one["fp32"]["pred_masks"]),
+                ("ranks_fp32", ranks[0]["fp32"]["pred_logits"], masks))}
+
+    def segment_map(p):
+        """The panoptic map with each segment named by its first query (-1:
+        void), whatever its id."""
+        new = p["is_new_segment"].bool()
+        lut = torch.full((256,), -1, dtype=torch.long, device=dev)
+        lut[p["seg_id"][new].long()] = torch.nonzero(new).flatten()
+        lut[0] = -1
+        return lut[p["panoptic_seg"].long()]
+
+    def map_mismatch(a, b):
+        kept = [set(torch.nonzero(post[x]["is_new_segment"]).flatten().tolist()) for x in (a, b)]
+        return {"panoptic_seg": (post[a]["panoptic_seg"] != post[b]["panoptic_seg"]).float().mean().item(),
+                "segments_by_first_query": (segment_map(post[a]) != segment_map(post[b])).float().mean().item(),
+                "sem_seg_argmax": (post[a]["sem_seg_argmax"] != post[b]["sem_seg_argmax"]).float().mean().item(),
+                "segments": [len(k) for k in kept], "segments_kept_by_one_side": sorted(kept[0] ^ kept[1])}
+
+    k1_maps = {"rank0_bf16_vs_one_bf16": map_mismatch("rank0_bf16", "one_bf16"),
+               "rank0_bf16_vs_one_fp32": map_mismatch("rank0_bf16", "one_fp32"),
+               "ranks_fp32_vs_one_fp32": map_mismatch("ranks_fp32", "one_fp32"),
+               "one_bf16_vs_one_fp32": map_mismatch("one_bf16", "one_fp32")}
+    peak_share = [r["peak_gb"] / one["peak_gb"] for r in ranks]
+    want = {"k1": 0, "k2": n_layers * SPATIAL_REQUESTS, "k3": 0, "k4": 0, "k5": 0}
+    checks = {
+        "fp32_logits_same_bytes_on_ranks": all(torch.equal(r["fp32"]["pred_logits"], ranks[0]["fp32"]["pred_logits"])
+                                               for r in ranks),
+        "rows_cover_the_map": [tuple(r["fp32"]["rows"]) for r in ranks] == [
+            (SEG_H // 4 * i // SPATIAL_WORLD, SEG_H // 4 * (i + 1) // SPATIAL_WORLD) for i in range(SPATIAL_WORLD)],
+        "fp32_pred_logits_within": logits_ok,
+        "fp32_pred_masks_within": masks_ok,
+        "finite": all(bool(torch.isfinite(r["bf16"]["pred_masks"]).all() and torch.isfinite(
+            r["bf16"]["pred_logits"]).all()) for r in (ranks[0], one)),
+        "k2_6_per_request_no_other_kernel": all(r["launches"] == want for r in ranks + [one]),
+        "k1_semantic_map_within_3e-3": k1_maps["rank0_bf16_vs_one_bf16"]["sem_seg_argmax"] < 3e-3,
+        "k1_panoptic_map_within_3e-3_of_one_process_bf16_or_fp32": min(
+            k1_maps[f"rank0_bf16_vs_one_{p}"]["panoptic_seg"] for p in ("bf16", "fp32")) < 3e-3,
+        "rank_peak_at_most_0.75_of_one_process": all(s <= SPATIAL_PEAK_SHARE for s in peak_share),
+    }
+    per_rank = [{"request_ms": r["request_ms"], "warmup_ms": r["warmup_ms"], "fp32_s": r["fp32"]["seconds"],
+                 "peak_gb": r["peak_gb"], "peak_share_of_one_process": s, "collectives_s": r["collectives"]["s"],
+                 "collectives_share": r["collectives"]["s"] / (sum(r["request_ms"]) / 1e3),
+                 "all_reduce_calls_per_request": r["collectives"]["calls"] / SPATIAL_REQUESTS,
+                 "all_reduce_mb_per_request": r["collectives"]["bytes"] / SPATIAL_REQUESTS / 1e6,
+                 "launches": r["launches"], "rows": r["fp32"]["rows"], "setup_s": r["setup_s"]}
+                for r, s in zip(ranks, peak_share)]
+    emit("spatial", world=SPATIAL_WORLD, backend_on_the_card="gloo", image=[1, SEG_H, SEG_W, 3],
+         requests=SPATIAL_REQUESTS, per_rank=per_rank,
+         one_process={"request_ms": one["request_ms"], "warmup_ms": one["warmup_ms"], "fp32_s": one["fp32"]["seconds"],
+                      "peak_gb": one["peak_gb"], "launches": one["launches"], "setup_s": one["setup_s"]},
+         weights_gb=one["weights_gb"], fp32_vs_one_process={"pred_logits": logits_fields, "pred_masks": masks_fields},
+         tolerance={"atol": SPATIAL_ATOL, "rtol": SPATIAL_RTOL, "outliers": SMALL_PRED_OUTLIERS,
+                    "outlier_max_abs": SMALL_PRED_MAX_ERR},
+         k1_map_mismatch=k1_maps, k2_scattered_queries=ranks[0]["k2_scattered_queries"], checks=checks,
+         seconds=time.perf_counter() - t_phase, card=smi,
+         note="two gloo ranks time-share one card through the host: no latency gain is measured")
+    fail_unless("spatial", checks)
+    shutil.rmtree(work, ignore_errors=True)
+    return {"one": one["launches"], **{role: r["launches"] for role, r in zip(roles, ranks)}}
 
 
 def main():
@@ -4125,14 +4381,20 @@ def main():
     # labels, read JPEG files and fill polygons)
     import tempfile
 
-    # phase multi_device's children set themselves up beside the next phases
+    # phases multi_device's and spatial's children set themselves up beside
+    # the next phases
     multi_device = start_multi_device()
+    spatial = start_spatial()
     with tempfile.TemporaryDirectory() as convert_root:
         converted = convert_phase(dev, smi, convert_root)
         demo_launches = demo_phase(dev, smi, kernel_fns, converted)
     torch.cuda.empty_cache()
     ade20k_eval_launches = eval_ade20k_phase(dev, smi, kernel_fns)
     torch.cuda.empty_cache()
+
+    # ---------------- one image split by rows over ranks in child processes
+    # sharing the card
+    spatial_launches = spatial_phase(dev, smi, spatial)
 
     # ---------------- data-parallel training and sharded evaluation: ranks
     # in child processes sharing the card
@@ -4192,6 +4454,7 @@ def main():
                          "train_per_rank_per_step": [n[key] for n in multi_device_launches["train_per_rank_per_step"]],
                          "eval_per_rank": {role: n[key]
                                            for role, n in multi_device_launches["eval_per_rank"].items()}},
+                     "spatial_launches": {role: n[key] for role, n in spatial_launches.items()},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r.get("library_ms"),
@@ -4207,9 +4470,10 @@ def main():
 
 
 if __name__ == "__main__":
-    if len(sys.argv) >= 4 and sys.argv[1] in (DETERMINISTIC_CHILD, CPU_STEP_CHILD, MULTI_DEVICE_CHILD):
+    if len(sys.argv) >= 4 and sys.argv[1] in (DETERMINISTIC_CHILD, CPU_STEP_CHILD, MULTI_DEVICE_CHILD,
+                                              SPATIAL_CHILD):
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         {DETERMINISTIC_CHILD: train_deterministic_child, CPU_STEP_CHILD: cpu_step_child,
-         MULTI_DEVICE_CHILD: multi_device_child}[sys.argv[1]](*sys.argv[2:])
+         MULTI_DEVICE_CHILD: multi_device_child, SPATIAL_CHILD: spatial_child}[sys.argv[1]](*sys.argv[2:])
     else:
         main()

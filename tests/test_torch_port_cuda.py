@@ -61,6 +61,37 @@ def test_ms_deform_attn_kernel_matches_plain(cuda, D, dtype):
     assert torch.equal(ms_deform_attn_fused_cuda(value, shapes, off, logits, ref_abs).float(), got.float())
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ms_deform_attn_kernel_on_scattered_queries(cuda, dtype):
+    """K2 on the queries one rank of an image split by rows holds
+    (`parallel/spatial.py`): image rows 32..63 of a 128x256 image, its rows
+    of the levels at strides 32, 16 and 8 (grids (4, 8), (8, 16), (16, 32)),
+    three runs of the level-major tokens, Lq = 168 of S = 672, with offsets
+    reaching the whole value. The kernel on that subset against the plain
+    version on all S queries, cut to the subset, at the tolerances above."""
+    from uni_encoder_tpu_torch.ops.ms_deform_attn import ms_deform_attn_fused_cuda, ms_deform_attn_fused_plain
+
+    shapes = ((4, 8), (8, 16), (16, 32))
+    S = sum(h * w for h, w in shapes)
+    value, off, logits, ref_abs = _msda_inputs(1, 8, 32, S, shapes, 3, cuda, getattr(torch, dtype))
+    index, start = [], 0
+    for (h, w), stride in zip(shapes, (32, 16, 8)):
+        index.append(torch.arange(start + (32 // stride) * w, start + (64 // stride) * w))
+        start += h * w
+    index = torch.cat(index).to(cuda)
+    assert index.numel() == 168 and (index.diff() > 1).sum() == 2
+    got = ms_deform_attn_fused_cuda(value, shapes, off[:, index].contiguous(), logits[:, index].contiguous(),
+                                    ref_abs[:, index].contiguous())
+    ref = ms_deform_attn_fused_plain(value, shapes, off, logits, ref_abs)[:, index]
+    assert tuple(got.shape) == (1, 168, 8 * 32)
+    if dtype == "float32":
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    else:
+        got, ref = got.float(), ref.float()
+        ulp = torch.where(ref == 0, torch.zeros_like(ref), 2.0 ** (torch.floor(torch.log2(ref.abs())) - 7))
+        assert ((got - ref).abs() <= ulp + 1e-5).all()
+
+
 def test_ms_deform_attn_kernel_rejects_bad_inputs(cuda):
     from uni_encoder_tpu_torch.ops.ms_deform_attn import ms_deform_attn_fused_cuda
 

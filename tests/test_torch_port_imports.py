@@ -25,6 +25,7 @@ import importlib, pkgutil, sys
 import uni_encoder_tpu_torch as port
 for m in pkgutil.walk_packages(port.__path__, "uni_encoder_tpu_torch."):
     importlib.import_module(m.name)
+assert "uni_encoder_tpu_torch.parallel.spatial" in sys.modules
 import chip_smoke
 import demo_torch
 import evaluate_torch

@@ -12,7 +12,9 @@ The resize is separable, y then x, and each pass computes
 `x0 * (1 - w) + x1 * w` in the input dtype, as the JAX copy does.
 `F.interpolate` blends both axes in one pass and rounds differently in bf16;
 the fused post-process's plain version depends on this order, so the port
-never calls it.
+never calls it. `resize_hw_rows` gives some output rows of a bilinear
+resize from the input rows they read (`source_rows`), for a caller that
+holds some rows of an image.
 
 `grid_sample` (bilinear, `zeros` or `border` padding, both `align_corners`)
 takes and gives NHWC tensors, as the JAX copy's does, and is written as the
@@ -87,6 +89,55 @@ def resize_hw(
         x = _resize_axis_nearest(x, dy, out_h)
         return _resize_axis_nearest(x, dx, out_w)
     raise ValueError(f"unsupported mode {mode!r}")
+
+
+def source_rows(rows: Tuple[int, int], in_size: int, out_size: int) -> Tuple[int, int]:
+    """The input rows [lo, hi) that a bilinear resize (align_corners=False)
+    of an axis from `in_size` to `out_size` reads for its output rows
+    `rows` = (a, b)."""
+    a, b = rows
+    if in_size == out_size:
+        return a, b
+    idx0, idx1, _ = _source_coords(out_size, in_size, False, "cpu")
+    return int(idx0[a:b].min()), int(idx1[a:b].max()) + 1
+
+
+def resize_hw_rows(
+    x: torch.Tensor,
+    size: Sequence[int],
+    dims: Tuple[int, int],
+    rows: Tuple[int, int],
+    in_rows: Tuple[int, int],
+    in_height: int,
+) -> torch.Tensor:
+    """Output rows `rows` = (a, b) of `resize_hw(x_whole, size, dims,
+    "bilinear", align_corners=False)`, where `x` holds only the input rows
+    `in_rows` = (lo, hi) of the whole input's `in_height` (at least every
+    row `source_rows` names; a caller holding some rows of an image fetches
+    the rest from its neighbours). The same arithmetic as `resize_hw`: each
+    output row's corners and weight come from the whole axis's coordinates,
+    so the rows clamp at the whole image's edges only."""
+    out_h, out_w = int(size[0]), int(size[1])
+    dy, dx = dims
+    a, b = rows
+    lo, hi = in_rows
+    if x.shape[dy] != hi - lo:
+        raise ValueError(f"x holds {x.shape[dy]} rows along dim {dy}, in_rows {in_rows} say {hi - lo}")
+    if in_height == out_h:
+        x = x.narrow(dy, a - lo, b - a)
+    else:
+        idx0, idx1, frac = _source_coords(out_h, in_height, False, x.device)
+        idx0, idx1, frac = idx0[a:b], idx1[a:b], frac[a:b]
+        if int(idx0.min()) < lo or int(idx1.max()) >= hi:
+            raise ValueError(f"output rows {rows} read input rows {source_rows(rows, in_height, out_h)}, "
+                             f"x holds {in_rows}")
+        x0 = x.index_select(dy, idx0 - lo)
+        x1 = x.index_select(dy, idx1 - lo)
+        shape = [1] * x.ndim
+        shape[dy] = b - a
+        w = frac.reshape(shape).to(x.dtype)
+        x = x0 * (1 - w) + x1 * w
+    return _resize_axis_linear(x, dx, out_w, False)
 
 
 def interpolate(

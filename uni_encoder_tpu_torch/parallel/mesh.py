@@ -15,6 +15,10 @@ that the step computes is made global here, as a sum over the ranks:
   * `m_sparsity`'s static threshold, count and `all` (`training/monodepth.py`);
   * the reported metrics (`mean_over_ranks`).
 
+For one image split by rows over the ranks (`parallel/spatial.py`) it also
+holds the row exchange (`fetch_rows`: the halo rows a rank needs from its
+neighbours) and the global max (`all_reduce_max`).
+
 Each rank's loss is its share of the global loss: the mean over the ranks of
 the ranks' losses is the global loss, and the mean over the ranks of their
 gradients is the global-batch gradient. Collectives that a loss runs
@@ -35,8 +39,9 @@ from __future__ import annotations
 
 import datetime
 import os
-from typing import Dict, Iterable, List, Optional, Union
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -134,9 +139,9 @@ def shard_batch(batch, rank: int, world: int):
 
 
 # ------------------------------------------------------------- collectives
-def _all_reduce_(x: torch.Tensor) -> torch.Tensor:
-    """Sum `x` over the ranks, in place."""
-    dist.all_reduce(x, op=dist.ReduceOp.SUM)
+def _all_reduce_(x: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Reduce `x` over the ranks by `op` (the sum), in place."""
+    dist.all_reduce(x, op=op)
     return x
 
 
@@ -172,6 +177,72 @@ def all_gather(x: torch.Tensor) -> torch.Tensor:
     blocks = [torch.zeros_like(x)] * world()
     blocks[rank()] = x
     return all_reduce_sum(torch.cat(blocks))
+
+
+def all_reduce_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max over the ranks of `x` (no gradient; identity
+    without a group)."""
+    if not active():
+        return x
+    return _all_reduce_(x.detach().clone(memory_format=torch.contiguous_format), dist.ReduceOp.MAX)
+
+
+def _row_indices(want) -> np.ndarray:
+    """A rank's wanted rows: a (lo, hi) range or a sequence of row indices."""
+    if isinstance(want, tuple) and len(want) == 2:
+        return np.arange(want[0], want[1])
+    return np.asarray(want, dtype=np.int64).reshape(-1)
+
+
+def fetch_rows(x: torch.Tensor, wants: Sequence, owned: Sequence[Tuple[int, int]], dim: int = 1) -> torch.Tensor:
+    """Rows of a tensor split by rows over the ranks, from whichever ranks
+    hold them (a collective: every rank calls it with the same `wants` and
+    `owned`).
+
+    `owned[r]` = (start, end): the global rows rank r holds, contiguous, the
+    ranks in order, covering rows 0 .. H-1 together; `x` is this rank's block
+    along `dim`. `wants[r]`: the global rows rank r asks for, a (lo, hi)
+    range or a sequence of indices, in the order wanted. Returns this rank's
+    rows, `x_global[wants[rank]]` along `dim`; a row outside [0, H) comes back
+    as zeros (the padding at the image's edges).
+
+    One sum all-reduce of a buffer that holds, for every rank, only the rows
+    it asks for and does not hold (each filled in by its owner, zeros
+    elsewhere): a halo of a few rows crosses, never a shard. Without a
+    group (one rank holding every row) nothing is exchanged."""
+    me, n = rank(), len(owned)
+    H = owned[-1][1]
+    idx = [_row_indices(w) for w in wants]
+    # per asking rank: the positions of its wanted rows that another rank holds
+    remote = [np.flatnonzero((i >= 0) & (i < H) & ((i < s) | (i >= e))) for i, (s, e) in zip(idx, owned)]
+    offsets = np.cumsum([0] + [len(p) for p in remote])
+    start, end = owned[me]
+    shape = list(x.shape)
+    buf = None
+    if offsets[-1]:
+        shape[dim] = int(offsets[-1])
+        buf = x.new_zeros(shape)
+        for r in range(n):
+            if r == me:
+                continue
+            rows = idx[r][remote[r]]
+            mine = np.flatnonzero((rows >= start) & (rows < end))
+            if len(mine):
+                buf.index_copy_(dim, torch.as_tensor(offsets[r] + mine, device=x.device),
+                                x.index_select(dim, torch.as_tensor(rows[mine] - start, device=x.device)))
+        if n > 1:
+            _all_reduce_(buf)
+    i = idx[me]
+    shape[dim] = len(i)
+    out = x.new_zeros(shape)
+    local = np.flatnonzero((i >= start) & (i < end))
+    if len(local):
+        out.index_copy_(dim, torch.as_tensor(local, device=x.device),
+                        x.index_select(dim, torch.as_tensor(i[local] - start, device=x.device)))
+    if len(remote[me]):
+        out.index_copy_(dim, torch.as_tensor(remote[me], device=x.device),
+                        buf.narrow(dim, int(offsets[me]), len(remote[me])))
+    return out
 
 
 def all_reduce_gradients(params: Iterable[torch.Tensor]) -> None:
