@@ -10,6 +10,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from _torch_port_common import SEQUENCE_PREFIXES, t
@@ -28,14 +29,15 @@ def forward_cfg(C):
                                sem_seg_head=head, one_former=of)
 
 
-def segmentation_model(state):
-    """The port's UniEncoder at `forward_cfg` with only its segmentation
-    modules on the CPU (the sequence modules stay on the meta device:
-    neither forward here reaches them), `state` (numpy, d2 names) loaded."""
+def segmentation_model(state, cfg=None):
+    """The port's UniEncoder at `cfg` (by default `forward_cfg`) with only
+    its segmentation modules on the CPU (the sequence modules stay on the
+    meta device: neither forward here reaches them), `state` (numpy, d2
+    names) loaded."""
     from uni_encoder_tpu_torch import config as TC
     from uni_encoder_tpu_torch.models.oneformer import UniEncoder
 
-    model = UniEncoder(forward_cfg(TC), device="meta")
+    model = UniEncoder(forward_cfg(TC) if cfg is None else cfg, device="meta")
     for m in (model.backbone, model.pixel_decoder, model.predictor, model.task_mlp):
         m.to_empty(device="cpu")
     missing, unexpected = model.load_state_dict({k: t(v) for k, v in state.items()}, strict=False)
@@ -43,14 +45,16 @@ def segmentation_model(state):
     return model.eval()
 
 
-def forward_rank(out_dir, state, images, tokens):
+def forward_rank(out_dir, state, images, tokens, cfg=None, float64=False):
     """`spatial_inference` of each image of `images` on this rank: its
     pred_logits, its rows of pred_masks with their range, and the whole
     masks through `gather_rows`; rank 0 adds the one-process
-    `forward_segmentation` of each."""
+    `forward_segmentation` of each, and with `float64` the same in float64
+    (`one_process_float64`: what the fp32 forwards round). `cfg`: the
+    model's config (the port's), by default `forward_cfg`."""
     from uni_encoder_tpu_torch.parallel.spatial import gather_rows, spatial_inference
 
-    model = segmentation_model(state)
+    model = segmentation_model(state, cfg)
     got = []
     with torch.inference_mode():
         for img in images:
@@ -60,7 +64,18 @@ def forward_rank(out_dir, state, images, tokens):
                 ref = model.forward_segmentation(t(img), t(tokens))
                 out["one_process"] = {k: ref[k] for k in ("pred_logits", "pred_masks")}
             got.append(out)
+        if float64 and mesh.rank() == 0:
+            model.double()
+            for img, out in zip(images, got):
+                ref = model.forward_segmentation(t(img).double(), t(tokens))
+                out["one_process_float64"] = {k: ref[k] for k in ("pred_logits", "pred_masks")}
     return got
+
+
+def models_rank(out_dir, cases, tokens):
+    """`forward_rank` of each (cfg, state, images) of `cases`, in order,
+    with the float64 one-process forwards."""
+    return [forward_rank(out_dir, state, images, tokens, cfg, float64=True) for cfg, state, images in cases]
 
 
 # ------------------------------------------------------------------- parts
@@ -84,6 +99,11 @@ def parts_inputs(seed=0):
         "mask_logits": f(2, 4, 32 * 3),
         "enc_src": f(1, 4 * 2 + 8 * 4 + 16 * 8, 32),
         "enc_pos": f(1, 4 * 2 + 8 * 4 + 16 * 8, 32),
+        "image": f(1, PARTS_HEIGHT, 14, 3),
+        "stride2": f(1, 64, 10, 5),
+        "stride8": f(1, 16, 9, 8),
+        "qkv": f(1, 32, 10, 3, 2, 4),
+        "rpb": f(2, 13, 13),
         "seed": seed,
     }
 
@@ -103,12 +123,13 @@ def parts_rank(out_dir, x):
     one-process module's result on the whole input cut to the same rows:
     {name: (partitioned, one process)}."""
     from uni_encoder_tpu_torch.models.backbones.swin import SwinBlock
-    from uni_encoder_tpu_torch.models.layers import MultiheadAttention
+    from uni_encoder_tpu_torch.models.layers import Conv2dNHWC, MultiheadAttention
     from uni_encoder_tpu_torch.models.pixel_decoders.msdeformattn import (
         MSDeformAttnEncoderLayer,
         absolute_reference_points,
     )
     from uni_encoder_tpu_torch.ops import resize_hw
+    from uni_encoder_tpu_torch.ops.neighborhood_attention import neighborhood_attention_2d_plain, reach_rows
     from uni_encoder_tpu_torch.ops.resize import resize_hw_rows
     from uni_encoder_tpu_torch.parallel import spatial
 
@@ -139,7 +160,7 @@ def parts_rank(out_dir, x):
         out["conv3x3"] = (spatial.conv_rows(conv, cut(t(x["conv"]), 4, 2), b4), cut(conv(t(x["conv"])), 4, 2))
 
         up = t(x["up"])
-        out["upsample_x2"] = (spatial.upsample_rows(cut(up, 8, 2), (32, 12), plan.bounds(8), b4, 16),
+        out["upsample_x2"] = (spatial.resize_rows(cut(up, 8, 2), (32, 12), plan.bounds(8), b4),
                               cut(resize_hw(up, (32, 12), dims=(2, 3)), 4, 2))
 
         down = t(x["down"])
@@ -205,4 +226,36 @@ def parts_rank(out_dir, x):
 
         gathered = spatial.gather_rows(cut(t(x["conv"]), 4, 2), plan.rows(4), 32)
         out["gather_rows"] = (gathered, t(x["conv"]))
+
+        # the general halo convolution: ResNet's 7x7 stride-2 stem on image
+        # rows (NCHW), a 3x3 stride-2 pad-1 (NHWC, stride 2 -> 4), and
+        # ConvNeXt's depthwise 7x7 (3 halo rows a side, at stride 8: 8, 4, 4
+        # rows a rank); the stem's 3x3 stride-2 max-pool, -inf padded
+        img = t(x["image"]).permute(0, 3, 1, 2)
+        stem = _module(nn.Conv2d, 3, 4, 7, stride=2, padding=3, seed=9)
+        out["conv7x7_stride2"] = (spatial.conv_rows(stem, cut(img, 1, 2), plan.bounds(1), plan.bounds(2)),
+                                  cut(stem(img), 2, 2))
+        s2 = t(x["stride2"])
+        down = _module(Conv2dNHWC, 5, 6, 3, stride=2, padding=1, seed=10)
+        out["conv3x3_stride2"] = (spatial.conv_rows(down, cut(s2, 2, 1), plan.bounds(2), b4), cut(down(s2), 4, 1))
+        s8 = t(x["stride8"])
+        dw = _module(Conv2dNHWC, 8, 8, 7, padding=3, groups=8, seed=11)
+        out["depthwise7x7"] = (spatial.conv_rows(dw, cut(s8, 8, 1), plan.bounds(8)), cut(dw(s8), 8, 1))
+        pooled = F.max_pool2d(s2.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+        out["max_pool3x3_stride2"] = (spatial.max_pool_rows(cut(s2, 2, 1), plan.bounds(2), b4), cut(pooled, 4, 1))
+
+        # neighbourhood attention's plain version with a row window on the
+        # rank's rows of a 32-row map (16, 8, 8 rows a rank), against the
+        # whole map's rows: dilation 1, 3 (clamped windows that reach other
+        # ranks' rows) and 8 (sub-grids of 4 rows, shorter than the kernel:
+        # repeated keys)
+        qkv, rpb = t(x["qkv"]), t(x["rpb"])
+        q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
+        lo, hi = plan.rows(4)
+        for d in (1, 3, 8):
+            k0, k1 = reach_rows(32, 7, d, (lo, hi))
+            out[f"na_row_window_dilation{d}"] = (
+                neighborhood_attention_2d_plain(q[:, lo:hi], k[:, k0:k1], v[:, k0:k1], rpb, 7, d, 0.5, (32, lo, k0)),
+                neighborhood_attention_2d_plain(q, k, v, rpb, 7, d, 0.5)[:, lo:hi])
+            out[f"na_reach_dilation{d}"] = (k0, k1)
     return out

@@ -359,6 +359,46 @@ def test_neighborhood_attention_kernel_matches_plain(cuda, nh, dtype, H, W, kern
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dilation", [1, 20])
+def test_neighborhood_attention_kernel_row_window_matches_plain(cuda, dtype, dilation):
+    """K4 with a row window against its plain version with the same window,
+    at DiNAT-L's stage-0 shape over a 1024x2048 frame (256x512, 6 heads,
+    head dim 32; dilations 1 and 20) split by rows over 2 ranks as
+    parallel/spatial.py splits it (rows 0-127 and 128-255) and over 3
+    uneven ranks (0-95, 96-159, 160-255): each rank's queries read from
+    the block of rows their windows reach (`reach_rows`), projected into one
+    (B, rows, W, 3, heads, dh) buffer as the DiNAT layer does. The windows
+    clamp at the whole map's edges. K4's tolerance: fp32 atol/rtol 1e-5,
+    bf16 one ulp of the plain output plus 1e-5. One launch a call."""
+    from uni_encoder_tpu_torch.ops.neighborhood_attention import (
+        neighborhood_attention_2d_cuda,
+        neighborhood_attention_2d_plain,
+        reach_rows,
+    )
+
+    dt, H, kernel = getattr(torch, dtype), 256, 7
+    q, k, v, rpb = _na_qkv(dilation, 1, H, 512, 6, 32, kernel, cuda, dt)
+    qkv = torch.stack((q, k, v), dim=3)
+    for lo, hi in ((0, 128), (128, 256), (0, 96), (96, 160), (160, 256)):
+        k0, k1 = reach_rows(H, kernel, dilation, (lo, hi))
+        block = qkv[:, k0:k1].contiguous()
+        args = (block[:, lo - k0:hi - k0, :, 0], block[:, :, :, 1], block[:, :, :, 2], rpb, kernel, dilation,
+                32 ** -0.5)
+        n0 = neighborhood_attention_2d_cuda.launches
+        with torch.inference_mode():
+            got = neighborhood_attention_2d_cuda(*args, rows=(H, lo, k0))
+        assert neighborhood_attention_2d_cuda.launches == n0 + 1
+        assert got.shape == (1, hi - lo, 512, 6, 32) and got.is_contiguous()
+        ref = neighborhood_attention_2d_plain(*args, rows=(H, lo, k0))
+        if dt == torch.float32:
+            torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+        else:
+            got, ref = got.float(), ref.float()
+            ulp = torch.where(ref == 0, torch.zeros_like(ref), 2.0 ** (torch.floor(torch.log2(ref.abs())) - 7))
+            assert ((got - ref).abs() <= ulp + 1e-5).all(), (lo, hi)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_neighborhood_attention_kernel_reruns_byte_identical(cuda, dtype):
     """No atomics and a fixed order of every sum: three runs of K4 at a
     DiNAT-L stage-2 shape of the pair (B = 2, 12x32, 24 heads, dilation 3)

@@ -11,8 +11,10 @@ made with numpy from a seed. The JAX function runs on a `make_mesh(N)` of
 the conftest's virtual CPU devices, jitted twice in all: N=2 at 64x128
 (one row a rank at stride 32: every Swin window there, and the halos, span
 both ranks) and N=4 at 128x128. The port runs on 2 ranks (64x128, and
-96x128: 3 blocks of 32 rows, 2 and 1) and on 4 (128x128), one thread a
-rank (tests/_torch_port_dist_common.py::run_ranks).
+96x128: 3 blocks of 32 rows, 2 and 1), on 3 (64x128: 2 blocks, so rank 2
+holds no row; 80x128, which the JAX forward takes: the last block 16 rows)
+and on 4 (128x128), one thread a rank
+(tests/_torch_port_dist_common.py::run_ranks).
 
 - pred_logits (the same bytes on every rank) and the masks gathered from
   the ranks' rows within the JAX test's atol and rtol of 2e-4
@@ -20,8 +22,10 @@ rank (tests/_torch_port_dist_common.py::run_ranks).
 - against the port's one-process forward on the same weights within
   ONE_PROCESS_TOL: the same function, another order of fp32 sums;
 - each rank's rows of pred_masks at its range of the stride-4 map;
-- fewer blocks of 32 rows than ranks raises (the JAX function pads such
-  shards; the port does not).
+- fewer blocks of 32 rows than ranks: the rank without rows returns the
+  same pred_logits and no mask rows, and the ranks' result is the JAX
+  function's at 64x128 (as it computes for 2 ranks: the same function on
+  any mesh) and the one process's.
 """
 
 import dataclasses
@@ -39,7 +43,7 @@ from tests.test_model_forward import _scaled_config
 
 JAX_TOL = 2e-4  # tests/test_spatial_sharding.py: atol and rtol
 ONE_PROCESS_TOL = 2e-5  # atol and rtol
-SIZES = {2: [(64, 128), (96, 128)], 4: [(128, 128)]}
+SIZES = {2: [(64, 128), (96, 128)], 3: [(64, 128), (80, 128)], 4: [(128, 128)]}
 JAX_SIZES = {2: (64, 128), 4: (128, 128)}
 
 
@@ -128,21 +132,28 @@ def test_ranks_match_one_process(case, n, hw):
         a, b = out["rows"]
         assert out["height"] == hw[0] // 4 and out["pred_masks"].shape == (1, Q, b - a, hw[1] // 4)
         assert torch.equal(out["pred_masks"], out["gathered_masks"][:, :, a:b])
-    blocks = hw[0] // 32
+    blocks = -(-hw[0] // 32)
     sizes = [blocks // n + (r < blocks % n) for r in range(n)]
-    assert [out["rows"] for out in per_rank] == [(8 * sum(sizes[:r]), 8 * sum(sizes[:r + 1])) for r in range(n)]
+    h4 = hw[0] // 4
+    assert [out["rows"] for out in per_rank] == [(min(8 * sum(sizes[:r]), h4), min(8 * sum(sizes[:r + 1]), h4))
+                                                 for r in range(n)]
 
 
-def test_fewer_row_blocks_than_ranks_raises(monkeypatch):
-    """64 rows are 2 blocks of 32: in a group of 3 one rank would hold none
-    (the group's size and this rank read from a stand-in for the group)."""
-    from uni_encoder_tpu_torch import config as TC
-    from uni_encoder_tpu_torch.models.oneformer import UniEncoder
-    from uni_encoder_tpu_torch.parallel import mesh
-    from uni_encoder_tpu_torch.parallel.spatial import spatial_inference
-
-    monkeypatch.setattr(mesh, "world", lambda: 3)
-    monkeypatch.setattr(mesh, "rank", lambda: 2)
-    model = UniEncoder(ranks.forward_cfg(TC), device="meta")
-    with pytest.raises(ValueError, match="fewer than the 3 ranks"):
-        spatial_inference(model, torch.zeros(1, 64, 128, 3), torch.zeros(1, 77))
+def test_fewer_row_blocks_than_ranks_raises(case):
+    """It does not raise: 64 rows are 2 blocks of 32, so in a group of 3 rank
+    2 holds no row. It takes part in every exchange, returns the same
+    pred_logits as the others and no mask rows, and the ranks' result is the
+    JAX function's (computed on 2 devices: GSPMD's padded shards compute the
+    same function) and the one process's."""
+    jax_out, port = case
+    hw = (64, 128)
+    per_rank = _port_case(port, 3, hw)
+    assert [out["rows"] for out in per_rank] == [(0, 8), (8, 16), (16, 16)]
+    empty = per_rank[2]
+    assert empty["pred_masks"].shape == (1, empty["pred_logits"].shape[1], 0, hw[1] // 4)
+    assert torch.equal(empty["pred_logits"], per_rank[0]["pred_logits"])
+    for r, out in enumerate(per_rank):
+        np.testing.assert_allclose(out["pred_logits"].numpy(), jax_out[hw]["pred_logits"], atol=JAX_TOL,
+                                   rtol=JAX_TOL, err_msg=f"rank {r} of 3")
+        np.testing.assert_allclose(out["gathered_masks"].numpy(), jax_out[hw]["pred_masks"], atol=JAX_TOL,
+                                   rtol=JAX_TOL, err_msg=f"rank {r} of 3")

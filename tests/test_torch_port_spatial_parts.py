@@ -26,7 +26,16 @@ weights from seeds, the same on every rank.
   whose keys are all on another, and one masked everywhere and un-masked;
 - one deformable encoder layer (K2's plain version on the CPU) on each
   rank's scattered queries against the layer on all tokens;
-- `gather_rows`, exactly.
+- `gather_rows`, exactly;
+- the general halo convolution `conv_rows` (ResNet's 7x7 stride-2 stem,
+  a 3x3 stride-2 convolution, ConvNeXt's depthwise 7x7) and ResNet's
+  -inf-padded 3x3 stride-2 max-pool (`max_pool_rows`, exactly);
+- the plain neighbourhood attention with a row window (the rank's query
+  rows, the key rows their windows reach) against the whole map's plain
+  version cut to the rank's rows, exactly: dilation 1, dilation 3 (a
+  clamped window reaches another rank's rows) and dilation 8 (sub-grids of
+  4 rows, shorter than the kernel of 7);
+- `RowPlan`: ranks past the blocks hold no row, a short last block.
 """
 
 import numpy as np
@@ -38,11 +47,12 @@ import _torch_port_spatial_ranks as ranks
 
 WORLD = 3
 EXACT = ("fetch_rows", "attention_mask", "upsample_x2", "downsample_stride8", "downsample_stride16", "downsample_stride32",
-         "gather_rows")
+         "gather_rows", "max_pool3x3_stride2", "na_row_window_dilation1", "na_row_window_dilation3",
+         "na_row_window_dilation8")
 # the same function as the one-process module in another order of fp32 sums
 ATOL = RTOL = 1e-5
 CLOSE = ("group_norm", "conv3x3", "swin4_shift0", "swin4_shift3", "swin32_shift0", "swin32_shift3",
-         "masked_attention", "encoder_layer")
+         "masked_attention", "encoder_layer", "conv7x7_stride2", "conv3x3_stride2", "depthwise7x7")
 
 
 @pytest.fixture(scope="module")
@@ -98,6 +108,17 @@ def test_encoder_queries_are_scattered(parts):
     assert np.array_equal(np.sort(np.concatenate(idx)), np.arange(4 * 2 + 8 * 4 + 16 * 8))
 
 
+def test_row_windows_reach_other_ranks(parts):
+    """The key rows of each rank's row window: at dilation 3 and 8 every
+    rank reaches past its own rows; at dilation 8 every window is a whole
+    sub-grid, so each rank reaches all 32 rows but its last residues'."""
+    own = [p["rows4"] for p in parts]
+    for d in (3, 8):
+        reach = [p[f"na_reach_dilation{d}"] for p in parts]
+        assert all(k0 < lo or k1 > hi for (k0, k1), (lo, hi) in zip(reach, own)), (d, reach)
+    assert [p["na_reach_dilation8"] for p in parts] == [(0, 32)] * 3
+
+
 def test_position_embedding_rows_are_the_whole_maps():
     from uni_encoder_tpu_torch.ops import position_embedding_sine
 
@@ -107,15 +128,20 @@ def test_position_embedding_rows_are_the_whole_maps():
 
 
 def test_row_plan_refuses_fewer_blocks_than_ranks(monkeypatch):
-    """The group's size and this rank read from a stand-in for the group."""
+    """It refuses neither: with fewer blocks of 32 rows than ranks the last
+    ranks hold none, and a height that is not a multiple of 32 (the JAX
+    forward takes 80 rows) makes the last block short (the group's size and
+    this rank read from a stand-in for the group)."""
     from uni_encoder_tpu_torch.parallel import mesh
     from uni_encoder_tpu_torch.parallel.spatial import RowPlan
 
     monkeypatch.setattr(mesh, "rank", lambda: 1)
     monkeypatch.setattr(mesh, "world", lambda: 2)
     assert RowPlan(96).bounds(4) == [(0, 16), (16, 24)] and RowPlan(96).rows(32) == (2, 3)
-    with pytest.raises(ValueError, match="multiple of 32"):
-        RowPlan(80)
+    assert RowPlan(80).bounds(4) == [(0, 16), (16, 20)] and RowPlan(80).bounds(32) == [(0, 2), (2, 3)]
     monkeypatch.setattr(mesh, "world", lambda: 3)
-    with pytest.raises(ValueError, match="fewer than the 3 ranks"):
-        RowPlan(64)
+    monkeypatch.setattr(mesh, "rank", lambda: 2)
+    plan = RowPlan(64)
+    assert plan.bounds(4) == [(0, 8), (8, 16), (16, 16)] and plan.rows(32) == (2, 2)
+    with pytest.raises(ValueError, match="needs rows"):
+        RowPlan(0)

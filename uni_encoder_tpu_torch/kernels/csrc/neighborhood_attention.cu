@@ -25,6 +25,19 @@
 //            the backward K5 (neighborhood_attention_backward.cu); null when
 //            no gradient is needed, and then nothing else changes
 //
+// Row window (one image's rows split over ranks, parallel/spatial.py): H is
+// the whole map's height and the queries are its rows [row_lo, row_hi) only;
+// `out` (and `lse`) hold those rows, (B, row_hi - row_lo, W, heads, dh). The
+// windows, their clamping and the bias come from the whole map's geometry.
+// The wrapper passes q, k and v as pointers to the whole map's row 0 (a
+// rank's block shifted back by its first global row, never dereferenced
+// outside the rows it holds), so every address below is a global row's. Each
+// kernel is built twice: for the whole map (kWindow false, the code as it was
+// before row windows, and launched for the window [0, H)) and for a row
+// window (kWindow true): the tile set-up divides by the dilation per block,
+// and the bf16 kernel sits at its register limit (a branch between the two
+// in one build spilled).
+//
 // What bounds it on an H100: per query and head 2 * k * k * dh multiply-adds
 // (6272 FLOP at k = 7, dh = 32) on 3 * dh inputs and dh outputs. At DiNAT-L's
 // stage 0 on a 1024x2048 frame (256x512 queries, 6 heads, bf16) one call must
@@ -119,7 +132,8 @@ __device__ __forceinline__ int window_start(int q, int sub_len, int kernel) {
   return min(max(q - kernel / 2, 0), max(sub_len - kernel, 0));
 }
 
-// One tile along one axis (`_tile_halo`). Halo indices count from h0.
+// One tile along one axis (`_tile_halo`), of the queries in rows [lo, hi)
+// (hi < 0: the whole axis). Halo indices count from h0.
 struct AxisTile {
   int m;        // residue class
   int sub_len;  // length of its sub-grid
@@ -132,12 +146,19 @@ struct AxisTile {
   int cnt;      // how often each window holds it
 };
 
-__device__ __forceinline__ AxisTile axis_tile(int size, int kernel, int dilation, int m, int tile) {
+__device__ __forceinline__ AxisTile axis_tile(int size, int kernel, int dilation, int m, int tile, int lo = 0,
+                                              int hi = -1) {
   AxisTile a;
   a.m = m;
   a.sub_len = (size - m + dilation - 1) / dilation;
-  a.q0 = tile * TQ;
-  a.nq = min(TQ, a.sub_len - a.q0);
+  // the sub-grid indices of the residue class's rows in [lo, hi): [first, end)
+  int first = 0, end = a.sub_len;
+  if (hi >= 0) {
+    first = (lo - m + dilation - 1) / dilation;
+    end = (hi - m + dilation - 1) / dilation;
+  }
+  a.q0 = first + tile * TQ;
+  a.nq = min(TQ, end - a.q0);
   a.len = min(kernel, a.sub_len);
   a.h0 = window_start(a.q0, a.sub_len, kernel);
   a.n = window_start(a.q0 + a.nq - 1, a.sub_len, kernel) + a.len - a.h0;
@@ -172,14 +193,23 @@ struct Params {
   long long sb, sh, sw, sn;
   int kernel, dilation;
   float scale;
-  int res_h, res_w;      // residue classes per axis, min(dilation, size)
-  int tiles_h, tiles_w;  // tiles per residue class, from the longest sub-grid
+  int res_h, res_w;      // residue classes per axis, min(dilation, rows)
+  int tiles_h, tiles_w;  // tiles per residue class, from its most rows
   int halo_max;          // K and V rows in shared memory, for the longest halo
   int span;              // 2 * kernel - 1
 };
 
+// The query rows of a call: [lo, hi) of the whole map's H (a separate kernel
+// argument: a field more in Params made the bf16 kernel spill)
+struct Rows {
+  int lo, hi;
+};
+
 // The block's (b, head) and its tile on each axis; false if it holds no query.
-__device__ __forceinline__ bool block_tile(const Params& p, int& b, int& n, AxisTile& th, AxisTile& tw) {
+// Under a row window its row residue class counts from the window's first row.
+template <bool kWindow>
+__device__ __forceinline__ bool block_tile(const Params& p, const Rows& rows, int& b, int& n, AxisTile& th,
+                                           AxisTile& tw) {
   unsigned i = blockIdx.x;
   n = (int)(i % p.NH);
   i /= p.NH;
@@ -191,7 +221,10 @@ __device__ __forceinline__ bool block_tile(const Params& p, int& b, int& n, Axis
   i /= p.res_w;
   const int mh = (int)(i % p.res_h);
   b = (int)(i / p.res_h);
-  th = axis_tile(p.H, p.kernel, p.dilation, mh, tile_h);
+  if (kWindow)
+    th = axis_tile(p.H, p.kernel, p.dilation, (rows.lo + mh) % p.dilation, tile_h, rows.lo, rows.hi);
+  else
+    th = axis_tile(p.H, p.kernel, p.dilation, mh, tile_h);
   tw = axis_tile(p.W, p.kernel, p.dilation, mw, tile_w);
   return th.nq > 0 && tw.nq > 0;
 }
@@ -296,18 +329,23 @@ __device__ __forceinline__ void load_halo(const Params& p, long long base, int n
   for (int e = threadIdx.x; e < p.span * p.span; e += kThreads) bias[e] = (float)rpb[e] * bias_scale;
 }
 
-__device__ __forceinline__ long long out_row(const Params& p, int b, int n, const AxisTile& th, int sub_h,
-                                             const AxisTile& tw, int sub_w) {
+// the output holds the window's rows only
+template <bool kWindow>
+__device__ __forceinline__ long long out_row(const Params& p, const Rows& rows, int b, int n, const AxisTile& th,
+                                             int sub_h, const AxisTile& tw, int sub_w) {
   const long long row = sub_h * p.dilation + th.m, col = sub_w * p.dilation + tw.m;
+  if (kWindow)
+    return (((long long)b * (rows.hi - rows.lo) + row - rows.lo) * p.W + col) * p.NH * DH + (long long)n * DH;
   return (((long long)b * p.H + row) * p.W + col) * p.NH * DH + (long long)n * DH;
 }
 
 // ------------------------------------------------------------------ bf16
-__global__ void __launch_bounds__(kThreads, 5) na2d_kernel_bf16(const Params p) {
+template <bool kWindow>
+__global__ void __launch_bounds__(kThreads, 5) na2d_kernel_bf16(const Params p, const Rows win) {
   constexpr int ROW = DH * 2 + 16;  // bytes of a row in shared memory
   int b, n;
   AxisTile th, tw;
-  if (!block_tile(p, b, n, th, tw)) return;
+  if (!block_tile<kWindow>(p, win, b, n, th, tw)) return;
   extern __shared__ __align__(16) unsigned char smem[];
   float* bias = reinterpret_cast<float*>(smem);  // rpb[head] * log2(e)
   unsigned char* qs = smem + bias_bytes(p.span);  // TQ * TQ query rows, later the output
@@ -492,7 +530,7 @@ __global__ void __launch_bounds__(kThreads, 5) na2d_kernel_bf16(const Params p) 
     const int slot = c / 4, i = c % 4;
     const int r = r0 + slot / TQ, col = slot % TQ;
     if (r < th.nq && col < tw.nq)
-      *reinterpret_cast<uint4*>(out + out_row(p, b, n, th, th.q0 + r, tw, tw.q0 + col) + i * 8) =
+      *reinterpret_cast<uint4*>(out + out_row<kWindow>(p, win, b, n, th, th.q0 + r, tw, tw.q0 + col) + i * 8) =
           *reinterpret_cast<const uint4*>(rows + slot * ROW + i * 16);
   }
 }
@@ -501,12 +539,13 @@ __global__ void __launch_bounds__(kThreads, 5) na2d_kernel_bf16(const Params p) 
 // lse: each query's log-sum-exp, or null (a separate argument, so that the
 // bf16 kernel's Params and code stay as they were: it sits at its register
 // limit)
-__global__ void __launch_bounds__(kThreads) na2d_kernel_fp32(const Params p, float* lse) {
+template <bool kWindow>
+__global__ void __launch_bounds__(kThreads) na2d_kernel_fp32(const Params p, float* lse, const Rows win) {
   constexpr int ROW = DH * 4 + 16;
   constexpr int HALF = DH / 2;  // the dims a thread owns
   int b, n;
   AxisTile th, tw;
-  if (!block_tile(p, b, n, th, tw)) return;
+  if (!block_tile<kWindow>(p, win, b, n, th, tw)) return;
   extern __shared__ __align__(16) unsigned char smem[];
   float* bias = reinterpret_cast<float*>(smem);
   unsigned char* ks = smem + bias_bytes(p.span);
@@ -583,28 +622,30 @@ __global__ void __launch_bounds__(kThreads) na2d_kernel_fp32(const Params p, flo
   if (tr < th.nq && tc < tw.nq) {
     const float inv = 1.f / sum;
     float4* o = reinterpret_cast<float4*>(static_cast<float*>(p.out) +
-                                          out_row(p, b, n, th, th.q0 + tr, tw, tw.q0 + tc) + half * HALF);
+                                          out_row<kWindow>(p, win, b, n, th, th.q0 + tr, tw, tw.q0 + tc) + half * HALF);
 #pragma unroll
     for (int i = 0; i < HALF / 4; ++i)
       o[i] = make_float4(acc[4 * i] * inv, acc[4 * i + 1] * inv, acc[4 * i + 2] * inv, acc[4 * i + 3] * inv);
     if (lse != nullptr && half == 0)  // K5's softmax statistics: the window walk's max and sum
-      lse[out_row(p, b, n, th, th.q0 + tr, tw, tw.q0 + tc) / DH] = mx + logf(sum);
+      lse[out_row<kWindow>(p, win, b, n, th, th.q0 + tr, tw, tw.q0 + tc) / DH] = mx + logf(sum);
   }
 }
 
-// The launch: its Params, grid and dynamic shared memory; false if the
-// shapes are refused.
-bool plan(int B, int H, int W, int NH, int kernel, int dilation, int is_bf16, Params& p, long long& blocks,
-          int& smem) {
+// The launch for the query rows [row_lo, row_hi) of a map of H rows: its
+// Params, grid and dynamic shared memory; false if the shapes are refused.
+bool plan(int B, int H, int W, int NH, int kernel, int dilation, int is_bf16, int row_lo, int row_hi, Params& p,
+          long long& blocks, int& smem) {
   if (B < 0 || H < 0 || W < 0 || NH < 1 || kernel < 1 || dilation < 1) return false;
+  if (row_lo < 0 || row_hi < row_lo || row_hi > H) return false;
+  const int rows = row_hi - row_lo;
   p.H = H;
   p.W = W;
   p.NH = NH;
   p.kernel = kernel;
   p.dilation = dilation;
-  p.res_h = dilation < H ? dilation : H;
+  p.res_h = dilation < rows ? dilation : rows;
   p.res_w = dilation < W ? dilation : W;
-  p.tiles_h = ((H + dilation - 1) / dilation + TQ - 1) / TQ;
+  p.tiles_h = ((rows + dilation - 1) / dilation + TQ - 1) / TQ;
   p.tiles_w = ((W + dilation - 1) / dilation + TQ - 1) / TQ;
   const int halo = TQ + kernel - 1;  // the longest halo side
   p.halo_max = halo * (is_bf16 ? halo | 1 : halo);  // bf16 keeps halo rows at an odd pitch
@@ -617,28 +658,36 @@ bool plan(int B, int H, int W, int NH, int kernel, int dilation, int is_bf16, Pa
 
 }  // namespace
 
-// The launch K4 makes for these shapes: blocks, threads a block and dynamic
-// shared memory a block (bytes). Returns 0, or cudaErrorInvalidValue for
-// shapes it refuses.
-extern "C" int na2d_launch_shape(int B, int H, int W, int NH, int kernel, int dilation, int is_bf16,
-                                 long long* blocks, int* threads, int* smem) {
+// The launch K4 makes for the query rows [row_lo, row_hi) of these shapes
+// (the whole map: [0, H)): blocks, threads a block and dynamic shared memory
+// a block (bytes). Returns 0, or cudaErrorInvalidValue for shapes it refuses.
+extern "C" int na2d_launch_shape(int B, int H, int W, int NH, int kernel, int dilation, int is_bf16, int row_lo,
+                                 int row_hi, long long* blocks, int* threads, int* smem) {
   Params p;
-  if (!plan(B, H, W, NH, kernel, dilation, is_bf16, p, *blocks, *smem)) return (int)cudaErrorInvalidValue;
+  if (!plan(B, H, W, NH, kernel, dilation, is_bf16, row_lo, row_hi, p, *blocks, *smem))
+    return (int)cudaErrorInvalidValue;
   *threads = kThreads;
   return 0;
 }
 
-// Neighborhood attention forward. The wrapper checks shapes, dtypes, the
-// head dim (32), shared strides with a contiguous last dim and, for the
-// vector reads, 16-byte alignment. `lse` (fp32 only) may be null.
+// Neighborhood attention forward for the query rows [row_lo, row_hi) of a
+// map of H rows (q, k and v addressed from the map's row 0: see the row
+// window above). The wrapper checks shapes, dtypes, the head dim (32), shared
+// strides with a contiguous last dim, for the vector reads 16-byte alignment,
+// and that the rows it holds of k and v cover every window of the queries.
+// `lse` (fp32 only) may be null.
 extern "C" int na2d_forward(const void* q, const void* k, const void* v, const void* rpb, void* out, float* lse,
                             int B, int H, int W, int NH, int head_dim, long long sb, long long sh, long long sw,
-                            long long sn, int kernel, int dilation, float scale, int is_bf16, void* stream) {
+                            long long sn, int kernel, int dilation, float scale, int is_bf16, int row_lo,
+                            int row_hi, void* stream) {
   Params p;
   long long blocks;
   int smem;
-  if (head_dim != DH || (is_bf16 && lse != nullptr) || !plan(B, H, W, NH, kernel, dilation, is_bf16, p, blocks, smem))
+  if (head_dim != DH || (is_bf16 && lse != nullptr) ||
+      !plan(B, H, W, NH, kernel, dilation, is_bf16, row_lo, row_hi, p, blocks, smem))
     return (int)cudaErrorInvalidValue;
+  const Rows win = {row_lo, row_hi};
+  const bool window = row_lo > 0 || row_hi < H;
   if (blocks == 0) return 0;
   p.q = q;
   p.k = k;
@@ -650,14 +699,19 @@ extern "C" int na2d_forward(const void* q, const void* k, const void* v, const v
   p.sw = sw;
   p.sn = sn;
   p.scale = scale;
-  const void* fn = is_bf16 ? (const void*)na2d_kernel_bf16 : (const void*)na2d_kernel_fp32;
+  const void* fn = is_bf16 ? (window ? (const void*)na2d_kernel_bf16<true> : (const void*)na2d_kernel_bf16<false>)
+                           : (window ? (const void*)na2d_kernel_fp32<true> : (const void*)na2d_kernel_fp32<false>);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  if (is_bf16)
-    na2d_kernel_bf16<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
+  if (is_bf16 && window)
+    na2d_kernel_bf16<true><<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(p, win);
+  else if (is_bf16)
+    na2d_kernel_bf16<false><<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(p, win);
+  else if (window)
+    na2d_kernel_fp32<true><<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(p, lse, win);
   else
-    na2d_kernel_fp32<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(p, lse);
+    na2d_kernel_fp32<false><<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(p, lse, win);
   return (int)cudaGetLastError();
 }

@@ -224,15 +224,16 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> None:
     Matrices and conv kernels get N(0, 1/fan_in), norm scales 1 + N(0, 0.01),
     everything else (biases, embeddings, bias tables) N(0, 0.01). BatchNorm
     running means get N(0, 0.01) and running variances 1 + 0.1 |N(0, 1)|.
-    The numbers are drawn on the CPU, so a seed gives the same weights on
-    every device.
+    The numbers are drawn on the generator's device: a CPU generator's seed
+    gives the same weights on every device (a CUDA generator's draws on the
+    card, faster for a full-width model, but other numbers).
     """
     norm_types = (nn.LayerNorm, nn.GroupNorm, FrozenBatchNorm)
     with torch.no_grad():
         for mod in module.modules():
             for name, p in mod.named_parameters(recurse=False):
                 shape = tuple(p.shape)
-                noise = torch.randn(shape, generator=generator, dtype=torch.float32)
+                noise = torch.randn(shape, generator=generator, dtype=torch.float32, device=generator.device)
                 if isinstance(mod, norm_types) and name == "weight":
                     val = 1.0 + 0.1 * noise
                 elif p.ndim >= 2 and name.endswith("weight") and not isinstance(mod, nn.Embedding):
@@ -243,7 +244,8 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> None:
                 p.copy_(val.to(p.dtype))
             if isinstance(mod, FrozenBatchNorm):
                 shape = tuple(mod.running_mean.shape)
-                mean = 0.1 * torch.randn(shape, generator=generator, dtype=torch.float32)
-                var = 1.0 + 0.1 * torch.randn(shape, generator=generator, dtype=torch.float32).abs()
+                mean = 0.1 * torch.randn(shape, generator=generator, dtype=torch.float32, device=generator.device)
+                var = 1.0 + 0.1 * torch.randn(shape, generator=generator, dtype=torch.float32,
+                                               device=generator.device).abs()
                 mod.running_mean.copy_(mean.to(mod.running_mean.dtype))
                 mod.running_var.copy_(var.to(mod.running_var.dtype))

@@ -19,6 +19,15 @@ clamped sub-grid offset, is added to each logit.
            `q * dh ** -0.5`); 1.0 for a pre-scaled q, as the JAX op takes it
   returns: (B, H, W, heads, dh)  contiguous, the input dtype
 
+A row window `rows = (height, q_row, k_row)` (one image's rows split over
+ranks, `parallel/spatial.py`) makes q the rows [q_row, q_row + H_q) of a map
+of `height` rows, and k and v its rows [k_row, k_row + H_k), which must hold
+every window of those queries: the windows, their clamping and the bias come
+from the whole map's `_axis_indices(height, ...)`, the values from the local
+blocks, and the output holds the query rows. With the window
+(H, 0, 0) on whole maps nothing changes. `reach_rows(height, kernel,
+dilation, q_rows)` gives the key rows a block of queries reaches.
+
 `neighborhood_attention_2d_plain` is the plain version: the JAX op's loop
 over the k*k window offsets, with index tensors, the logits, the softmax and
 the weighted sum of values all in fp32 and one rounding to the input dtype
@@ -126,18 +135,48 @@ def _inverse_range(sub_len: int, kernel: int, key: int) -> Tuple[int, int]:
     return lo, hi
 
 
-def _check_shapes(q, k, v, rpb, kernel: int, dilation: int) -> None:
-    if q.ndim != 5 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v must share one (B, H, W, heads, dh) shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+def reach_rows(height: int, kernel: int, dilation: int, q_rows: Tuple[int, int]) -> Tuple[int, int]:
+    """The rows [lo, hi) of a map of `height` rows that the windows of the
+    query rows `q_rows` = (a, b) reach together (a < b): the union of their
+    windows, contiguous, since a window always holds its own query."""
+    idx = _axis_indices(height, kernel, dilation)[0][q_rows[0]:q_rows[1]]
+    return int(idx.min()), int(idx.max()) + 1
+
+
+def _row_axis(q_height: int, k_height: int, kernel: int, dilation: int,
+              rows: Optional[Tuple[int, int, int]]) -> Tuple[np.ndarray, np.ndarray]:
+    """(idx, rel) of `_axis_indices` along the rows for the row window
+    `rows` (None: the whole map), idx counted from k's first row."""
+    if rows is None:
+        return _axis_indices(q_height, kernel, dilation)
+    height, q_row, k_row = rows
+    idx, rel = _axis_indices(height, kernel, dilation)
+    return idx[q_row:q_row + q_height] - k_row, rel[q_row:q_row + q_height]
+
+
+def _check_shapes(q, k, v, rpb, kernel: int, dilation: int, rows: Optional[Tuple[int, int, int]] = None) -> None:
+    same = [q.shape[:1] + q.shape[2:]] * 3 == [x.shape[:1] + x.shape[2:] for x in (q, k, v)]
+    if q.ndim != 5 or not same or v.shape != k.shape or (rows is None and k.shape != q.shape):
+        raise ValueError(f"q, k, v must share one (B, H, W, heads, dh) shape (k and v may hold other rows under "
+                         f"a row window), got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if kernel < 1 or dilation < 1:
         raise ValueError(f"kernel and dilation must be positive, got {kernel}, {dilation}")
+    if rows is not None:
+        height, q_row, k_row = rows
+        if not (0 <= q_row and q_row + q.shape[1] <= height and 0 <= k_row and k_row + k.shape[1] <= height):
+            raise ValueError(f"row window {rows}: q's rows [{q_row}, {q_row + q.shape[1]}) and k's "
+                             f"[{k_row}, {k_row + k.shape[1]}) must lie in the map's {height} rows")
+        if q.shape[1]:
+            lo, hi = reach_rows(height, kernel, dilation, (q_row, q_row + q.shape[1]))
+            if lo < k_row or hi > k_row + k.shape[1]:
+                raise ValueError(f"row window {rows}: the queries' windows reach rows [{lo}, {hi}), k and v hold "
+                                 f"[{k_row}, {k_row + k.shape[1]})")
     if tuple(rpb.shape) != (q.shape[3], 2 * kernel - 1, 2 * kernel - 1):
         raise ValueError(f"rpb shape {tuple(rpb.shape)} != {(q.shape[3], 2 * kernel - 1, 2 * kernel - 1)}")
 
 
 def _plain_logits(q: torch.Tensor, k: torch.Tensor, rpb: torch.Tensor, kernel: int, dilation: int,
-                  scale: float) -> torch.Tensor:
+                  scale: float, rows: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """The plain version's fp32 logits (B, H, W, heads, k*k): one gather of
     K per window offset, q scaled in its own dtype first; a clamped window's
     repeated key is listed as often as the window repeats it."""
@@ -145,7 +184,7 @@ def _plain_logits(q: torch.Tensor, k: torch.Tensor, rpb: torch.Tensor, kernel: i
     if scale != 1.0:
         q = q * scale  # in q's dtype, as the module scales it
     qf, kf, bias = q.float(), k.float(), rpb.float()
-    idx_h, rel_h = (torch.from_numpy(a).to(q.device) for a in _axis_indices(H, kernel, dilation))
+    idx_h, rel_h = (torch.from_numpy(a).to(q.device) for a in _row_axis(H, k.shape[1], kernel, dilation, rows))
     idx_w, rel_w = (torch.from_numpy(a).to(q.device) for a in _axis_indices(W, kernel, dilation))
 
     logits = []
@@ -159,19 +198,20 @@ def _plain_logits(q: torch.Tensor, k: torch.Tensor, rpb: torch.Tensor, kernel: i
 
 
 def neighborhood_attention_2d_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rpb: torch.Tensor,
-                                    kernel: int, dilation: int = 1, scale: float = 1.0) -> torch.Tensor:
+                                    kernel: int, dilation: int = 1, scale: float = 1.0,
+                                    rows: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """The plain version: the logits (`_plain_logits`), an fp32 softmax over
     the k*k offsets, one gather of V per offset for the weighted sum, in
-    fp32."""
-    _check_shapes(q, k, v, rpb, kernel, dilation)
+    fp32. `rows`: the row window (height, q_row, k_row), or None."""
+    _check_shapes(q, k, v, rpb, kernel, dilation, rows)
     B, H, W, nh, dh = q.shape
     dtype = q.dtype
     vf = v.float()
-    idx_h = torch.from_numpy(_axis_indices(H, kernel, dilation)[0]).to(q.device)
+    idx_h = torch.from_numpy(_row_axis(H, k.shape[1], kernel, dilation, rows)[0]).to(q.device)
     idx_w = torch.from_numpy(_axis_indices(W, kernel, dilation)[0]).to(q.device)
-    attn = torch.softmax(_plain_logits(q, k, rpb, kernel, dilation, scale), dim=-1)  # (B, H, W, nh, k*k)
+    attn = torch.softmax(_plain_logits(q, k, rpb, kernel, dilation, scale, rows), dim=-1)  # (B, H, W, nh, k*k)
 
-    out = torch.zeros_like(vf)
+    out = q.new_zeros((B, H, W, nh, dh), dtype=torch.float32)
     for a in range(kernel):
         v_row = vf.index_select(1, idx_h[:, a])
         for b in range(kernel):
@@ -188,9 +228,9 @@ def neighborhood_attention_2d_lse_plain(q: torch.Tensor, k: torch.Tensor, rpb: t
     return torch.logsumexp(_plain_logits(q, k, rpb, kernel, dilation, scale), dim=-1)
 
 
-def _check_cuda_args(q, k, v, rpb, kernel: int, dilation: int) -> None:
+def _check_cuda_args(q, k, v, rpb, kernel: int, dilation: int, rows=None) -> None:
     """Raise on what the kernel does not take."""
-    _check_shapes(q, k, v, rpb, kernel, dilation)
+    _check_shapes(q, k, v, rpb, kernel, dilation, rows)
     for t, name in ((q, "q"), (k, "k"), (v, "v"), (rpb, "rpb")):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}, got {t.device}")
@@ -212,19 +252,24 @@ def _check_cuda_args(q, k, v, rpb, kernel: int, dilation: int) -> None:
 
 def neighborhood_attention_2d_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rpb: torch.Tensor,
                                    kernel: int, dilation: int = 1, scale: float = 1.0,
-                                   lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+                                   lse: Optional[torch.Tensor] = None,
+                                   rows: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """Launch K4. Counts its launches in `.launches`. With `lse` (fp32
     inputs only: a contiguous (B, H, W, heads) fp32 tensor on the same card)
     it also writes each window's log-sum-exp there, for K5; the output's
-    bytes are the same either way. Alone it has no backward: with grad mode
-    on and an input that requires grad it raises, rather than return an
-    output without a grad_fn (`neighborhood_attention_2d_qkv` pairs it with
-    K5)."""
+    bytes are the same either way. `rows`: the row window (height, q_row,
+    k_row), or None (not with `lse`: K5 takes whole maps). Alone it has no
+    backward: with grad mode on and an input that requires grad it raises,
+    rather than return an output without a grad_fn
+    (`neighborhood_attention_2d_qkv` pairs it with K5)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, rpb)):
         raise RuntimeError("the neighborhood-attention forward kernel (K4) alone has no backward: call "
                            "neighborhood_attention_2d_qkv, which pairs it with K5, or run under no_grad")
-    _check_cuda_args(q, k, v, rpb, kernel, dilation)
+    _check_cuda_args(q, k, v, rpb, kernel, dilation, rows)
     B, H, W, nh, dh = q.shape
+    if lse is not None and rows is not None:
+        raise ValueError("K4 writes lse for whole maps only (its reader K5 takes no row window)")
+    height, q_row, k_row = (H, 0, 0) if rows is None else rows
     if lse is not None and (q.dtype != torch.float32 or lse.dtype != torch.float32 or lse.device != q.device
                             or tuple(lse.shape) != (B, H, W, nh) or not lse.is_contiguous()):
         raise ValueError(f"lse must be a contiguous fp32 {(B, H, W, nh)} tensor on {q.device}, for fp32 inputs; "
@@ -236,15 +281,18 @@ def neighborhood_attention_2d_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Te
     fn = lib.na2d_forward
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 4 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     out = torch.empty((B, H, W, nh, dh), dtype=q.dtype, device=q.device)
+    # q, k and v as the kernel addresses them: from the whole map's row 0
+    row_bytes = q.stride(1) * q.element_size()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), rpb.data_ptr(), out.data_ptr(),
-                None if lse is None else lse.data_ptr(), B, H, W, nh, dh,
-                *q.stride()[:4], kernel, dilation, float(scale), int(q.dtype == torch.bfloat16), stream)
+        rc = fn(q.data_ptr() - q_row * row_bytes, k.data_ptr() - k_row * row_bytes, v.data_ptr() - k_row * row_bytes,
+                rpb.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(), B, height, W, nh, dh,
+                *q.stride()[:4], kernel, dilation, float(scale), int(q.dtype == torch.bfloat16), q_row, q_row + H,
+                stream)
     if rc != 0:
         raise RuntimeError(f"neighborhood_attention kernel launch failed: cudaError {rc}")
     neighborhood_attention_2d_cuda.launches += 1
@@ -380,10 +428,11 @@ def neighborhood_attention_2d_qkv(qkv: torch.Tensor, rpb: torch.Tensor, kernel: 
 
 
 def neighborhood_attention_2d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, rpb: torch.Tensor,
-                              kernel: int, dilation: int = 1, scale: float = 1.0) -> torch.Tensor:
+                              kernel: int, dilation: int = 1, scale: float = 1.0,
+                              rows: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """K4 for CUDA tensors (under autograd it raises: the backward, K5,
     takes the qkv layout of `neighborhood_attention_2d_qkv`), the plain
-    version for CPU tensors."""
+    version for CPU tensors; `rows`: the row window, or None."""
     if q.is_cuda:
-        return neighborhood_attention_2d_cuda(q, k, v, rpb, kernel, dilation, scale)
-    return neighborhood_attention_2d_plain(q, k, v, rpb, kernel, dilation, scale)
+        return neighborhood_attention_2d_cuda(q, k, v, rpb, kernel, dilation, scale, rows=rows)
+    return neighborhood_attention_2d_plain(q, k, v, rpb, kernel, dilation, scale, rows)

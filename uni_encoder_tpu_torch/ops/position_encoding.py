@@ -41,8 +41,8 @@ def _cached(h: int, w: int, num_pos_feats: int, temperature: int, normalize: boo
     pos_x = x_embed[:, :, None] / dim_t
     pos_y = y_embed[:, :, None] / dim_t
     # interleave: even channel -> sin, odd channel -> cos (equal freqs pairwise)
-    pos_x = np.stack((np.sin(pos_x[:, :, 0::2]), np.cos(pos_x[:, :, 1::2])), axis=3).reshape(b - a, w, -1)
-    pos_y = np.stack((np.sin(pos_y[:, :, 0::2]), np.cos(pos_y[:, :, 1::2])), axis=3).reshape(b - a, w, -1)
+    pos_x = np.stack((np.sin(pos_x[:, :, 0::2]), np.cos(pos_x[:, :, 1::2])), axis=3).reshape(b - a, w, num_pos_feats)
+    pos_y = np.stack((np.sin(pos_y[:, :, 0::2]), np.cos(pos_y[:, :, 1::2])), axis=3).reshape(b - a, w, num_pos_feats)
     return np.concatenate((pos_y, pos_x), axis=2)
 
 

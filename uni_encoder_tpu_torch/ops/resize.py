@@ -12,9 +12,9 @@ The resize is separable, y then x, and each pass computes
 `x0 * (1 - w) + x1 * w` in the input dtype, as the JAX copy does.
 `F.interpolate` blends both axes in one pass and rounds differently in bf16;
 the fused post-process's plain version depends on this order, so the port
-never calls it. `resize_hw_rows` gives some output rows of a bilinear
-resize from the input rows they read (`source_rows`), for a caller that
-holds some rows of an image.
+never calls it. `resize_hw_rows` gives some output rows of a bilinear or
+nearest resize from the input rows they read (`source_rows`), for a caller
+that holds some rows of an image.
 
 `grid_sample` (bilinear, `zeros` or `border` padding, both `align_corners`)
 takes and gives NHWC tensors, as the JAX copy's does, and is written as the
@@ -63,13 +63,17 @@ def _resize_axis_linear(x: torch.Tensor, axis: int, out_size: int, align_corners
     return x0 * (1 - w) + x1 * w
 
 
+def _nearest_source(out_size: int, in_size: int, device) -> torch.Tensor:
+    """The input index of each output index of a nearest resize."""
+    dst = torch.arange(out_size, dtype=torch.float32, device=device)
+    return torch.clamp(torch.floor(dst * (in_size / out_size)).to(torch.int64), 0, in_size - 1)
+
+
 def _resize_axis_nearest(x: torch.Tensor, axis: int, out_size: int) -> torch.Tensor:
     in_size = x.shape[axis]
     if in_size == out_size:
         return x
-    dst = torch.arange(out_size, dtype=torch.float32, device=x.device)
-    src = torch.clamp(torch.floor(dst * (in_size / out_size)).to(torch.int64), 0, in_size - 1)
-    return x.index_select(axis, src)
+    return x.index_select(axis, _nearest_source(out_size, in_size, x.device))
 
 
 def resize_hw(
@@ -91,13 +95,18 @@ def resize_hw(
     raise ValueError(f"unsupported mode {mode!r}")
 
 
-def source_rows(rows: Tuple[int, int], in_size: int, out_size: int) -> Tuple[int, int]:
-    """The input rows [lo, hi) that a bilinear resize (align_corners=False)
-    of an axis from `in_size` to `out_size` reads for its output rows
-    `rows` = (a, b)."""
+def source_rows(rows: Tuple[int, int], in_size: int, out_size: int, mode: str = "bilinear") -> Tuple[int, int]:
+    """The input rows [lo, hi) that a bilinear (align_corners=False) or
+    nearest resize of an axis from `in_size` to `out_size` reads for its
+    output rows `rows` = (a, b); (0, 0) for no rows."""
     a, b = rows
+    if a >= b:
+        return 0, 0
     if in_size == out_size:
         return a, b
+    if mode == "nearest":
+        src = _nearest_source(out_size, in_size, "cpu")[a:b]
+        return int(src.min()), int(src.max()) + 1
     idx0, idx1, _ = _source_coords(out_size, in_size, False, "cpu")
     return int(idx0[a:b].min()), int(idx1[a:b].max()) + 1
 
@@ -109,22 +118,31 @@ def resize_hw_rows(
     rows: Tuple[int, int],
     in_rows: Tuple[int, int],
     in_height: int,
+    mode: str = "bilinear",
 ) -> torch.Tensor:
-    """Output rows `rows` = (a, b) of `resize_hw(x_whole, size, dims,
-    "bilinear", align_corners=False)`, where `x` holds only the input rows
-    `in_rows` = (lo, hi) of the whole input's `in_height` (at least every
-    row `source_rows` names; a caller holding some rows of an image fetches
-    the rest from its neighbours). The same arithmetic as `resize_hw`: each
-    output row's corners and weight come from the whole axis's coordinates,
-    so the rows clamp at the whole image's edges only."""
+    """Output rows `rows` = (a, b) of `resize_hw(x_whole, size, dims, mode,
+    align_corners=False)` (bilinear or nearest), where `x` holds only the
+    input rows `in_rows` = (lo, hi) of the whole input's `in_height` (at
+    least every row `source_rows` names; a caller holding some rows of an
+    image fetches the rest from its neighbours). The same arithmetic as
+    `resize_hw`: each output row's corners and weight come from the whole
+    axis's coordinates, so the rows clamp at the whole image's edges only."""
     out_h, out_w = int(size[0]), int(size[1])
     dy, dx = dims
     a, b = rows
     lo, hi = in_rows
     if x.shape[dy] != hi - lo:
         raise ValueError(f"x holds {x.shape[dy]} rows along dim {dy}, in_rows {in_rows} say {hi - lo}")
-    if in_height == out_h:
-        x = x.narrow(dy, a - lo, b - a)
+    if mode not in ("bilinear", "nearest"):
+        raise ValueError(f"unsupported mode {mode!r}")
+    if in_height == out_h or a >= b:
+        x = x.narrow(dy, a - lo, b - a) if a < b else x.narrow(dy, 0, 0)
+    elif mode == "nearest":
+        src = _nearest_source(out_h, in_height, x.device)[a:b]
+        if int(src.min()) < lo or int(src.max()) >= hi:
+            raise ValueError(f"output rows {rows} read input rows {source_rows(rows, in_height, out_h, mode)}, "
+                             f"x holds {in_rows}")
+        x = x.index_select(dy, src - lo)
     else:
         idx0, idx1, frac = _source_coords(out_h, in_height, False, x.device)
         idx0, idx1, frac = idx0[a:b], idx1[a:b], frac[a:b]
@@ -137,6 +155,8 @@ def resize_hw_rows(
         shape[dy] = b - a
         w = frac.reshape(shape).to(x.dtype)
         x = x0 * (1 - w) + x1 * w
+    if mode == "nearest":
+        return _resize_axis_nearest(x, dx, out_w)
     return _resize_axis_linear(x, dx, out_w, False)
 
 

@@ -2,30 +2,42 @@
 `uni_encoder_tpu/parallel/spatial.py`).
 
 The JAX function puts the image's H axis on the mesh's data axis and lets
-GSPMD partition the whole segmentation forward. PyTorch has no GSPMD, so
-this module holds the partitioned forward of every layer of the default
-model (Swin-T -> MSDeformAttnPixelDecoder -> OneFormerQueryDecoder), each
+GSPMD partition the whole segmentation forward of whatever model it is
+given. PyTorch has no GSPMD, so this module holds the partitioned forward of
+every layer of every segmentation model `models/oneformer.py` builds (the
+Swin-T, ResNet, ConvNeXt and DiNAT backbones; the MSDeformAttn, Base and
+TransformerEncoder pixel decoders; the OneFormer query decoder), each
 calling the one-process modules' own sub-layers and weights:
 
   * rows go to the ranks in blocks of ROW_BLOCK image rows (one row at
-    stride 32), as evenly as the blocks allow (`RowPlan`); at stride s rank
-    r holds rows [32 b_r / s, 32 b_{r+1} / s), so the patch embedding, the
-    patch merging, every per-token layer, every 1x1 convolution and the
-    mask features' downsample to each level are local;
+    stride 32), as evenly as the blocks allow (`RowPlan`): ranks past the
+    blocks hold none, and the last block may be short. At stride s rank r
+    holds rows [32 b_r / s, 32 b_{r+1} / s) of the map, cut at its height,
+    so every per-token layer, every 1x1 convolution, the patch embeddings,
+    Swin's patch merging and ConvNeXt's downsamples are local;
+  * every other convolution (any kernel height, stride and zero padding:
+    the stems, the stride-2 3x3s, ConvNeXt's depthwise 7x7, the FPNs' 3x3s)
+    fetches the halo rows its kernel reads from the ranks that hold them
+    (`conv_rows`, over `mesh.fetch_rows`), zero rows past the map's edges;
+    ResNet's stem max-pool pads with -inf there (`max_pool_rows`); resizes
+    fetch the rows they read (`resize_rows`);
   * a Swin block computes every window (shifted or not) that holds one of
-    its rows, with the rows of those windows fetched from whichever ranks
-    hold them (`mesh.fetch_rows`): the bottom padding comes back as zero
-    rows and the shifted blocks' top rows, which the cyclic shift wraps
-    into the bottom window, come from the first rank, so every window,
-    its bias and its region mask are the one-process model's;
+    its rows, with the rows of those windows fetched: the bottom padding
+    comes back as zero rows and the shifted blocks' top rows, which the
+    cyclic shift wraps into the bottom window, come from the first rank, so
+    every window, its bias and its region mask are the one-process model's;
+  * a DiNAT layer fetches the rows its queries' neighbourhoods reach (their
+    windows' union, up to (kernel - 1) * dilation rows past the block) and
+    runs K4 with a row window: the windows clamp at the whole map's edges;
   * GroupNorm takes its statistics over the whole image (two sum
     all-reduces of (B, groups) in fp32: the mean, then the centred squares);
-  * the FPN tail's x2 bilinear upsample and its 3x3 convolution fetch one
-    row from each neighbour, and clamp or zero-pad at the image's edges only;
   * the deformable encoder: each rank's queries are its rows of each level
     (not contiguous in the level-major token order); their values are
     all-gathered, since the sampling reaches anywhere in the image, and K2
     samples for the rank's queries only;
+  * TransformerEncoderPixelDecoder's encoder attends globally over res5
+    (32 x 64 tokens at 1024x2048): res5 is gathered whole and the encoder
+    runs on every rank, which keeps its rows;
   * attention whose keys are row-split (the class transformer over the
     stride-4 map, the masked cross-attention rounds) takes the global max of
     the logits, local exp sums and weighted values, and one sum all-reduce:
@@ -36,8 +48,9 @@ calling the one-process modules' own sub-layers and weights:
   * the queries, their self-attention, FFNs and heads run on every rank on
     replicated values.
 
-The result is the one-process forward's up to the order of sums. The value
-all-gather of each encoder layer is the one activation held whole
+A rank that holds no row takes part in every collective and launches no
+kernel. The result is the one-process forward's up to the order of sums.
+The value all-gather of each encoder layer is the one activation held whole
 (S x conv_dim: 43 008 x 256 at 1024x2048). The partitioned path is for
 serving: it runs without autograd.
 """
@@ -46,7 +59,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,49 +67,71 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import mesh
+from ..models.backbones.convnext import ConvNeXt
+from ..models.backbones.dinat import DiNAT
+from ..models.backbones.resnet import ResNet
 from ..models.backbones.swin import SwinTransformer, _shift_attn_mask, window_partition, window_reverse
-from ..models.layers import relu
+from ..models.layers import Conv2dNHWC, gelu, relu
 from ..models.oneformer import FEATURE_STRIDES
+from ..models.pixel_decoders.fpn import BasePixelDecoder, TransformerEncoderPixelDecoder
 from ..models.pixel_decoders.msdeformattn import MSDeformAttnPixelDecoder, absolute_reference_points
 from ..models.transformer_decoder import OneFormerQueryDecoder
 from ..ops import ms_deform_attn_fused, position_embedding_sine
+from ..ops.neighborhood_attention import neighborhood_attention_2d, reach_rows
 from ..ops.resize import resize_hw_rows, source_rows
 
 # image rows a rank holds at a time: one row at the backbone's last stride
 ROW_BLOCK = 32
 # keys a rank exponentiates at a time in the row-split attention
 KEY_CHUNK = 16384
+# the stride of each backbone feature a pixel decoder reads
+STRIDES = {"stem": 4, **FEATURE_STRIDES}
+
+Bounds = Sequence[Tuple[int, int]]
+
+
+def conv_out(size: int, kernel: int, stride: int, padding: int) -> int:
+    """The output length of a convolution or pooling along one axis."""
+    return (size + 2 * padding - kernel) // stride + 1
 
 
 class RowPlan:
     """The rows of an image of `height` rows that each rank of the process
-    group holds: blocks of ROW_BLOCK image rows, the first
-    `n_blocks % world` ranks one block more. Raises unless `height` is a
-    multiple of ROW_BLOCK (as the model's size_divisibility asks) and every
-    rank holds a block."""
+    group holds: blocks of ROW_BLOCK image rows (the last one short where
+    `height` is not a multiple of ROW_BLOCK), the first `n_blocks % world`
+    ranks one block more; with fewer blocks than ranks the last ranks hold
+    none. At stride s rank r holds rows [k b_r, k b_{r+1}) of the map, k =
+    ROW_BLOCK / s, cut at the map's height: ceil(height / s) unless a layer
+    set it (`set_size`: a valid convolution rounds down)."""
 
     def __init__(self, height: int):
+        if height < 1:
+            raise ValueError(f"an image needs rows, got height {height}")
         world = mesh.world()
         self.rank = mesh.rank()
-        if height % ROW_BLOCK:
-            raise ValueError(f"spatial partitioning needs the image height to be a multiple of {ROW_BLOCK}, "
-                             f"got {height}")
-        n_blocks = height // ROW_BLOCK
-        if n_blocks < world:
-            raise ValueError(f"an image of {height} rows holds {n_blocks} blocks of {ROW_BLOCK} rows, fewer than "
-                             f"the {world} ranks: a rank would hold no row (give at least {ROW_BLOCK * world} rows, "
-                             f"or fewer ranks)")
-        q, rem = divmod(n_blocks, world)
+        q, rem = divmod(-(-height // ROW_BLOCK), world)
         self.height = height
         self.world = world
         self.blocks = [r * q + min(r, rem) for r in range(world + 1)]
+        self.sizes = {1: height}
+
+    def size(self, stride: int) -> int:
+        """The whole map's rows at `stride`."""
+        return self.sizes.get(stride, -(-self.height // stride))
+
+    def set_size(self, stride: int, rows: int) -> int:
+        """Record the whole map's rows at `stride` (what a layer's arithmetic
+        gives); returns them."""
+        self.sizes[stride] = rows
+        return rows
 
     def bounds(self, stride: int) -> List[Tuple[int, int]]:
-        """Every rank's rows (start, end) of the map at `stride` (a divisor of ROW_BLOCK)."""
+        """Every rank's rows (start, end) of the map at `stride` (a divisor of
+        ROW_BLOCK); (n, n) for a rank without rows."""
         if ROW_BLOCK % stride:
             raise ValueError(f"stride {stride} does not divide the row block of {ROW_BLOCK}")
-        k = ROW_BLOCK // stride
-        return [(k * self.blocks[r], k * self.blocks[r + 1]) for r in range(self.world)]
+        k, n = ROW_BLOCK // stride, self.size(stride)
+        return [(min(k * self.blocks[r], n), min(k * self.blocks[r + 1], n)) for r in range(self.world)]
 
     def rows(self, stride: int) -> Tuple[int, int]:
         """This rank's rows of the map at `stride`."""
@@ -131,27 +166,82 @@ def group_norm(gn: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
     return (y * gn.weight.float().view(1, C, 1, 1) + gn.bias.float().view(1, C, 1, 1)).to(x.dtype)
 
 
-def conv_rows(conv: nn.Conv2d, x: torch.Tensor, bounds: Sequence[Tuple[int, int]]) -> torch.Tensor:
-    """A stride-1 convolution with `padding` = kernel // 2 on (B, C, h, W),
-    the rank's rows `bounds[rank]` of the map: `padding` halo rows from each
-    neighbour, zero rows past the map's edges (its zero padding there)."""
-    ph, pw = conv.padding
-    if conv.stride != (1, 1) or conv.kernel_size[0] != 2 * ph + 1 or conv.dilation != (1, 1):
-        raise ValueError(f"conv_rows takes stride-1 'same' convolutions, got {conv}")
-    x = mesh.fetch_rows(x, [(s - ph, e + ph) for s, e in bounds], bounds, dim=2)
-    return F.conv2d(x, conv.weight, conv.bias, 1, (0, pw), 1, conv.groups)
+def _reads(out_bounds: Bounds, kernel: int, stride: int, padding: int) -> List[Tuple[int, int]]:
+    """The input rows [lo, hi) that each rank's output rows of a convolution
+    or pooling read ((0, 0) for none; past the map's edges: its padding)."""
+    return [(a * stride - padding, (b - 1) * stride - padding + kernel) if b > a else (0, 0) for a, b in out_bounds]
 
 
-def upsample_rows(x: torch.Tensor, size: Tuple[int, int], in_bounds: Sequence[Tuple[int, int]],
-                  out_bounds: Sequence[Tuple[int, int]], in_height: int) -> torch.Tensor:
-    """The rank's rows `out_bounds[rank]` of the bilinear resize
-    (align_corners=False) of the whole (B, C, in_height, w) map to `size`,
-    from its rows `in_bounds[rank]` and the rows around them that the resize
-    reads (one from each neighbour at x2), fetched."""
-    wants = [source_rows(r, in_height, size[0]) for r in out_bounds]
+def conv_rows(conv: nn.Conv2d, x: torch.Tensor, in_bounds: Bounds,
+              out_bounds: Optional[Bounds] = None) -> torch.Tensor:
+    """`conv` (any kernel, stride and zero padding, no dilation; an
+    `nn.Conv2d` on (B, C, h, W) or a `Conv2dNHWC` on (B, h, W, C)) on the
+    rank's rows `in_bounds[rank]` of its input map: the rank's rows
+    `out_bounds[rank]` of the output map (by default `in_bounds`: a stride-1
+    'same' convolution). The input rows those output rows read come from the
+    ranks that hold them (`mesh.fetch_rows`: the halo that the kernel height,
+    stride and padding give; none for a 1x1 or a valid convolution on
+    aligned rows), zero rows past the map's edges (its padding there)."""
+    (kh, kw), (sh, sw), (ph, pw) = conv.kernel_size, conv.stride, conv.padding
+    if conv.dilation != (1, 1) or conv.padding_mode != "zeros":
+        raise ValueError(f"conv_rows takes undilated zero-padded convolutions, got {conv}")
+    out_bounds = in_bounds if out_bounds is None else out_bounds
+    if conv_out(in_bounds[-1][1], kh, sh, ph) != out_bounds[-1][1]:
+        raise ValueError(f"{conv} makes {conv_out(in_bounds[-1][1], kh, sh, ph)} rows of {in_bounds[-1][1]}, "
+                         f"the plan says {out_bounds[-1][1]}")
+    nhwc = isinstance(conv, Conv2dNHWC)
+    dim, me = (1 if nhwc else 2), mesh.rank()
+    reads = _reads(out_bounds, kh, sh, ph)
+    if all(s <= lo and hi <= e for (lo, hi), (s, e) in zip(reads, in_bounds) if hi > lo):
+        # no rank reads a row it does not hold: no exchange
+        lo, hi = reads[me]
+        x = x.narrow(dim, lo - in_bounds[me][0], hi - lo) if hi > lo else x.narrow(dim, 0, 0)
+    else:
+        x = mesh.fetch_rows(x, reads, in_bounds, dim=dim)
+    if nhwc:
+        x = x.permute(0, 3, 1, 2)
+    a, b = out_bounds[me]
+    if a == b:
+        y = x.new_zeros((x.shape[0], conv.out_channels, 0, conv_out(x.shape[3], kw, sw, pw)))
+    else:
+        y = F.conv2d(x, conv.weight, conv.bias, (sh, sw), (0, pw), 1, conv.groups)
+    return y.permute(0, 2, 3, 1) if nhwc else y
+
+
+def max_pool_rows(x: torch.Tensor, in_bounds: Bounds, out_bounds: Bounds, kernel: int = 3, stride: int = 2,
+                  padding: int = 1) -> torch.Tensor:
+    """`F.max_pool2d(kernel, stride, padding)` (ResNet's stem pool) on
+    (B, h, W, C), the rank's rows `in_bounds[rank]` of the map: its rows
+    `out_bounds[rank]` of the pooled map, from the rows they read, fetched;
+    -inf padding at the map's edges only, as the one-process pool's."""
+    n = in_bounds[-1][1]
+    if conv_out(n, kernel, stride, padding) != out_bounds[-1][1]:
+        raise ValueError(f"the pool makes {conv_out(n, kernel, stride, padding)} rows of {n}, the plan says "
+                         f"{out_bounds[-1][1]}")
+    wants = _reads(out_bounds, kernel, stride, padding)
+    x = mesh.fetch_rows(x, wants, in_bounds, dim=1)
+    lo, hi = wants[mesh.rank()]
+    if lo == hi:
+        return x.new_zeros((x.shape[0], 0, conv_out(x.shape[2], kernel, stride, padding), x.shape[3]))
+    rows = np.arange(lo, hi)
+    edge = np.flatnonzero((rows < 0) | (rows >= n))
+    if len(edge):  # fetch_rows gives zeros there
+        x.index_fill_(1, torch.from_numpy(edge).to(x.device), float("-inf"))
+    return F.max_pool2d(x.permute(0, 3, 1, 2), kernel, stride, (0, padding)).permute(0, 2, 3, 1)
+
+
+def resize_rows(x: torch.Tensor, size: Tuple[int, int], in_bounds: Bounds, out_bounds: Bounds,
+                mode: str = "bilinear") -> torch.Tensor:
+    """The rank's rows `out_bounds[rank]` of the resize (bilinear with
+    align_corners=False, or nearest) of the whole (B, C, h, w) map to
+    `size`, from its rows `in_bounds[rank]` and the rows the resize reads
+    besides (one from each neighbour at a bilinear x2; none for a downsample
+    by a power of 2 on aligned rows), fetched."""
+    n = in_bounds[-1][1]
+    wants = [source_rows(r, n, size[0], mode) for r in out_bounds]
     x = mesh.fetch_rows(x, wants, in_bounds, dim=2)
     me = mesh.rank()
-    return resize_hw_rows(x, size, (2, 3), out_bounds[me], wants[me], in_height)
+    return resize_hw_rows(x, size, (2, 3), out_bounds[me], wants[me], n, mode)
 
 
 def attention(mha: nn.Module, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
@@ -166,7 +256,7 @@ def attention(mha: nn.Module, query: torch.Tensor, key: torch.Tensor, value: tor
     E, H = mha.embed_dim, mha.num_heads
     Dh = E // H
     B, Lq, _ = query.shape
-    Lk = key.shape[1]
+    Lk = key.shape[1]  # 0 on a rank without rows
     w, b = mha.in_proj_weight, mha.in_proj_bias
     q = F.linear(query, w[:E], b[:E]).view(B, Lq, H, Dh).transpose(1, 2)
     k = F.linear(key, w[E:2 * E], b[E:2 * E]).view(B, Lk, H, Dh).transpose(1, 2)
@@ -175,7 +265,9 @@ def attention(mha: nn.Module, query: torch.Tensor, key: torch.Tensor, value: tor
     logits = torch.matmul(q, k.transpose(-2, -1)) / math.sqrt(Dh)
     if attn_mask is not None:  # bool, True = not allowed
         logits = logits.masked_fill(attn_mask, float("-inf"))
-    top = mesh.all_reduce_max(logits.amax(dim=-1, keepdim=True).float())
+    top = logits.amax(dim=-1, keepdim=True).float() if Lk else logits.new_full((B, H, Lq, 1), float("-inf"),
+                                                                                dtype=torch.float32)
+    top = mesh.all_reduce_max(top)
     num = torch.zeros((B, H, Lq, Dh), dtype=torch.float32, device=q.device)
     den = torch.zeros((B, H, Lq, 1), dtype=torch.float32, device=q.device)
     for c in range(0, Lk, KEY_CHUNK):
@@ -233,6 +325,8 @@ def swin_block(blk: nn.Module, x: torch.Tensor, bounds: Sequence[Tuple[int, int]
     shortcut = x
     # rows past the map's last come back as zeros: the bottom padding
     x = mesh.fetch_rows(blk.norm1(x), [r for _, r in plans], bounds, dim=1)
+    if lo == hi:
+        return shortcut
     if pad_r:
         x = F.pad(x, (0, 0, 0, pad_r))
     mask = None
@@ -248,22 +342,122 @@ def swin_block(blk: nn.Module, x: torch.Tensor, bounds: Sequence[Tuple[int, int]
     return x + blk.mlp(blk.norm2(x))
 
 
-# ------------------------------------------------------------------ model
-def backbone_features(backbone: SwinTransformer, images: torch.Tensor, plan: RowPlan) -> Dict[str, torch.Tensor]:
+# -------------------------------------------------------------- backbones
+def nat_layer(blk: nn.Module, x: torch.Tensor, bounds: Bounds, height: int) -> torch.Tensor:
+    """`NATLayer.forward` (no stochastic depth) on (B, h, W, C), the rank's
+    rows `bounds[rank]` of a map of `height` rows: the normed rows its
+    queries' windows reach (`reach_rows`: the union, clamped at the whole
+    map's edges) fetched from the ranks that hold them, q, k and v projected
+    there, and the neighbourhood attention (K4 on the card) with the row
+    window (height, first query row, first fetched row)."""
+    attn = blk.attn
+    lo, hi = bounds[mesh.rank()]
+    reach = [reach_rows(height, attn.kernel_size, attn.dilation, (a, b)) if b > a else (0, 0) for a, b in bounds]
+    y = mesh.fetch_rows(blk.norm1(x), reach, bounds, dim=1)
+    if lo == hi:
+        return x
+    B, _, W, C = x.shape
+    k0 = reach[mesh.rank()][0]
+    dh = C // attn.num_heads
+    qkv = attn.qkv(y).view(B, y.shape[1], W, 3, attn.num_heads, dh)
+    out = neighborhood_attention_2d(qkv[:, lo - k0:hi - k0, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2], attn.rpb,
+                                    attn.kernel_size, attn.dilation, dh ** -0.5, rows=(height, lo, k0))
+    x = x + attn.proj(out.reshape(B, hi - lo, W, C))
+    return x + blk.mlp(blk.norm2(x))
+
+
+def swin_features(backbone: SwinTransformer, images: torch.Tensor, plan: RowPlan) -> Dict[str, torch.Tensor]:
     """`SwinTransformer.forward` (no stochastic depth) on the rank's image
     rows: its rows of {res2 .. res5}, channels-last."""
-    x = backbone.patch_embed(images)
+    embed = backbone.patch_embed
+    n = plan.set_size(4, conv_out(plan.height, 4, 4, 0))
+    x = conv_rows(embed.proj, images.permute(0, 3, 1, 2), plan.bounds(1), plan.bounds(4)).permute(0, 2, 3, 1)
+    if embed.norm is not None:
+        x = embed.norm(x)
     outs = {}
     for i, stage in enumerate(backbone.layers):
-        stride = FEATURE_STRIDES[f"res{i + 2}"]
+        stride = 4 << i
         for blk in stage.blocks:
-            x = swin_block(blk, x, plan.bounds(stride), plan.height // stride)
+            x = swin_block(blk, x, plan.bounds(stride), n)
         outs[f"res{i + 2}"] = getattr(backbone, f"norm{i}")(x)
         if stage.downsample is not None:
-            x = stage.downsample(x)
+            x = stage.downsample(x)  # pads an odd map's last row: the last rank's
+            n = plan.set_size(2 * stride, -(-n // 2))
     return outs
 
 
+def _conv_bn(conv: nn.Module, x: torch.Tensor, plan: RowPlan, stride: int) -> Tuple[torch.Tensor, int]:
+    """ResNet's `ConvBN` on the rank's rows of a map at `stride`: (its rows
+    of the output, the output's stride)."""
+    out_stride = stride * conv.stride[0]
+    plan.set_size(out_stride, conv_out(plan.size(stride), conv.kernel_size[0], conv.stride[0], conv.padding[0]))
+    return conv.norm(conv_rows(conv, x, plan.bounds(stride), plan.bounds(out_stride))), out_stride
+
+
+def resnet_features(backbone: ResNet, images: torch.Tensor, plan: RowPlan) -> Dict[str, torch.Tensor]:
+    """`ResNet.forward` on the rank's image rows: its rows of the features in
+    `out_features` ({stem, res2 .. res5}), channels-last."""
+    x, _ = _conv_bn(backbone.stem.conv1, images, plan, 1)
+    plan.set_size(4, conv_out(plan.size(2), 3, 2, 1))
+    x = max_pool_rows(relu(x), plan.bounds(2), plan.bounds(4))
+    stride, outs = 4, {"stem": x}
+    for i in range(4):
+        for blk in getattr(backbone, f"res{i + 2}"):
+            convs = [blk.conv1, blk.conv2] + ([blk.conv3] if hasattr(blk, "conv3") else [])
+            out, s = x, stride
+            for j, conv in enumerate(convs):
+                out, s = _conv_bn(conv, out, plan, s)
+                if j < len(convs) - 1:
+                    out = relu(out)
+            shortcut = x if blk.shortcut is None else _conv_bn(blk.shortcut, x, plan, stride)[0]
+            x, stride = relu(out + shortcut), s
+        outs[f"res{i + 2}"] = x
+    return {k: v for k, v in outs.items() if k in backbone.out_features}
+
+
+def convnext_features(backbone: ConvNeXt, images: torch.Tensor, plan: RowPlan) -> Dict[str, torch.Tensor]:
+    """`ConvNeXt.forward` (no stochastic depth) on the rank's image rows: its
+    rows of {res2 .. res5}, channels-last. The stem and the downsamples are
+    valid convolutions on aligned rows (local); the depthwise 7x7 fetches 3
+    halo rows a side."""
+    x, n, outs = images, plan.height, {}
+    for i, (down, stage) in enumerate(zip(backbone.downsample_layers, backbone.stages)):
+        stride = 4 << i
+        conv = down[0] if i == 0 else down[1]  # the stem: conv, norm; a downsample: norm, conv
+        n = plan.set_size(stride, conv_out(n, conv.kernel_size[0], conv.stride[0], 0))
+        bounds = plan.bounds(stride // conv.stride[0]), plan.bounds(stride)
+        x = down[1](conv_rows(conv, x, *bounds)) if i == 0 else conv_rows(conv, down[0](x), *bounds)
+        for blk in stage:
+            y = blk.pwconv2(gelu(blk.pwconv1(blk.norm(conv_rows(blk.dwconv, x, plan.bounds(stride))))))
+            x = x + (y if blk.gamma is None else blk.gamma * y)
+        outs[f"res{i + 2}"] = getattr(backbone, f"norm{i}")(x)
+    return outs
+
+
+def dinat_features(backbone: DiNAT, images: torch.Tensor, plan: RowPlan) -> Dict[str, torch.Tensor]:
+    """`DiNAT.forward` (no stochastic depth) on the rank's image rows: its
+    rows of {res2 .. res5}, channels-last. The tokenizer's and downsamplers'
+    3x3 stride-2 convolutions fetch one halo row above."""
+    x, stride = images, 1
+    for conv in backbone.patch_embed.proj:
+        plan.set_size(2 * stride, conv_out(plan.size(stride), 3, 2, 1))
+        x = conv_rows(conv, x, plan.bounds(stride), plan.bounds(2 * stride))
+        stride *= 2
+    x = backbone.patch_embed.norm(x)
+    outs = {}
+    for i, level in enumerate(backbone.levels):
+        for blk in level.blocks:
+            x = nat_layer(blk, x, plan.bounds(stride), plan.size(stride))
+        outs[f"res{i + 2}"] = getattr(backbone, f"norm{i}")(x)
+        if level.downsample is not None:
+            plan.set_size(2 * stride, conv_out(plan.size(stride), 3, 2, 1))
+            x = level.downsample.norm(conv_rows(level.downsample.reduction, x, plan.bounds(stride),
+                                                plan.bounds(2 * stride)))
+            stride *= 2
+    return outs
+
+
+# --------------------------------------------------------- pixel decoders
 @functools.lru_cache(maxsize=32)
 def _local_reference_points(shapes: Tuple[Tuple[int, int], ...], index: Tuple[Tuple[int, int], ...],
                             device: torch.device) -> torch.Tensor:
@@ -278,33 +472,33 @@ def _encoder_layer(layer: nn.Module, src: torch.Tensor, pos: torch.Tensor, ref_a
                    shapes: Tuple[Tuple[int, int], ...], index: torch.Tensor) -> torch.Tensor:
     """`MSDeformAttnEncoderLayer.forward` on the rank's tokens `src` at the
     level-major positions `index`: their values all-gathered into the whole
-    (B, S, C) value, K2 on the rank's queries."""
+    (B, S, C) value, K2 on the rank's queries (none without queries)."""
     attn = layer.self_attn
     B, n, C = src.shape
     S = sum(h * w for h, w in shapes)
     value = src.new_zeros((B, S, C))
     value.index_copy_(1, index, attn.value_proj(src))
     value = mesh.all_reduce_sum(value).view(B, S, attn.n_heads, C // attn.n_heads)
+    if n == 0:
+        return src
     query = src + pos
     out = ms_deform_attn_fused(value, shapes, attn.sampling_offsets(query), attn.attention_weights(query), ref_abs)
     src = layer.norm1(src + attn.output_proj(out))
     return layer.norm2(src + layer.linear2(relu(layer.linear1(src))))
 
 
-def pixel_decoder(pd: MSDeformAttnPixelDecoder, features: Dict[str, torch.Tensor], plan: RowPlan):
+def msdeform_pixel_decoder(pd: MSDeformAttnPixelDecoder, features: Dict[str, torch.Tensor], plan: RowPlan):
     """`MSDeformAttnPixelDecoder.forward` on the rank's rows of the
-    features: its rows of (mask_features, the lowest-res map, the
-    `num_multi_scale` lowest-res maps), channels-first, and the maps'
-    strides, low-res first."""
+    features: its rows of mask_features and of the `num_multi_scale`
+    lowest-res maps, channels-first, and the maps' strides, low-res first."""
     C = pd.conv_dim
-    me = mesh.rank()
     srcs, poss, shapes, strides, index = [], [], [], [], []
     start = 0
     for i, f in enumerate(reversed(pd.transformer_in_features)):
-        stride = FEATURE_STRIDES[f]
+        stride = STRIDES[f]
         proj = pd.input_proj[i]
-        x = group_norm(proj[1], proj[0](features[f].permute(0, 3, 1, 2)))
-        h, w = plan.height // stride, x.shape[3]
+        x = group_norm(proj[1], conv_rows(proj[0], features[f].permute(0, 3, 1, 2), plan.bounds(stride)))
+        h, w = plan.size(stride), x.shape[3]
         a, b = plan.rows(stride)
         shapes.append((h, w))
         strides.append(stride)
@@ -333,16 +527,48 @@ def pixel_decoder(pd: MSDeformAttnPixelDecoder, features: Dict[str, torch.Tensor
         offset += (b - a) * w
 
     for idx, f in enumerate(reversed(pd.fpn_in_features)):
-        stride = FEATURE_STRIDES[f]
+        stride = STRIDES[f]
         adapter, conv = getattr(pd, f"adapter_{idx + 1}"), getattr(pd, f"layer_{idx + 1}")
-        lat = group_norm(adapter.norm, nn.Conv2d.forward(adapter, features[f].permute(0, 3, 1, 2)))
-        up = upsample_rows(out[-1], (plan.height // stride, lat.shape[3]), plan.bounds(strides[-1]),
-                           plan.bounds(stride), plan.height // strides[-1])
+        lat = group_norm(adapter.norm, conv_rows(adapter, features[f].permute(0, 3, 1, 2), plan.bounds(stride)))
+        up = resize_rows(out[-1], (plan.size(stride), lat.shape[3]), plan.bounds(strides[-1]), plan.bounds(stride))
         out.append(relu(group_norm(conv.norm, conv_rows(conv, lat + up, plan.bounds(stride)))))
         strides.append(stride)
-    return pd.mask_features(out[-1]), out[0], out[: pd.num_multi_scale], strides[: pd.num_multi_scale]
+    mask_features = conv_rows(pd.mask_features, out[-1], plan.bounds(strides[-1]))
+    return mask_features, out[: pd.num_multi_scale], strides[: pd.num_multi_scale]
 
 
+def fpn_pixel_decoder(pd, features: Dict[str, torch.Tensor], plan: RowPlan):
+    """`BasePixelDecoder.forward` / `TransformerEncoderPixelDecoder.forward`
+    (`_FPN.trunk`, then the mask features) on the rank's rows of the
+    features: its rows of mask_features and of the `num_multi_scale`
+    lowest-res maps, channels-first, and their strides, low-res first. The
+    lateral 1x1 convolutions and the nearest upsample are local on aligned
+    rows, the 3x3 convolutions fetch a halo row a side; the transformer's
+    encoder runs on every rank on res5 gathered whole (its attention is
+    global), and each rank keeps its rows."""
+    outs, strides, y = [], [], None
+    for idx, f in enumerate(reversed(pd.in_features)):
+        num, stride = len(pd.in_features) - idx, STRIDES[f]
+        bounds = plan.bounds(stride)
+        x = features[f].permute(0, 3, 1, 2)
+        if idx == 0:
+            if pd.use_transformer:
+                a, b = bounds[mesh.rank()]
+                x = gather_rows(conv_rows(pd.input_proj, x, bounds), (a, b), plan.size(stride))
+                x = pd._encode(x)[:, :, a:b]
+        else:
+            adapter = getattr(pd, f"adapter_{num}")
+            lat = group_norm(adapter.norm, conv_rows(adapter, x, bounds))
+            x = lat + resize_rows(y, (plan.size(stride), lat.shape[3]), plan.bounds(strides[-1]), bounds, "nearest")
+        layer = getattr(pd, f"layer_{num}")
+        y = relu(group_norm(layer.norm, conv_rows(layer, x, bounds)))
+        outs.append(y)
+        strides.append(stride)
+    mask_features = conv_rows(pd.mask_features, outs[-1], plan.bounds(strides[-1]))
+    return mask_features, outs[: pd.num_multi_scale], strides[: pd.num_multi_scale]
+
+
+# ---------------------------------------------------------- query decoder
 def predictor(pr: OneFormerQueryDecoder, multi_scale: Sequence[torch.Tensor], mask_features: torch.Tensor,
               task_embedding: torch.Tensor, strides: Sequence[int], plan: RowPlan) -> Dict[str, torch.Tensor]:
     """`OneFormerQueryDecoder.forward` (serving) on the rank's rows of the
@@ -356,14 +582,14 @@ def predictor(pr: OneFormerQueryDecoder, multi_scale: Sequence[torch.Tensor], ma
     if len(multi_scale) != L:
         raise ValueError(f"expected {L} feature levels, got {len(multi_scale)}")
     dev = mask_features.device
-    rows4 = plan.rows(4)
+    rows4, h4 = plan.rows(4), plan.size(4)
 
     srcs, poss, level_rows = [], [], []
     for i in range(L):
         x = multi_scale[i]
-        h, w = plan.height // strides[i], x.shape[3]
+        h, w = plan.size(strides[i]), x.shape[3]
         a, b = plan.rows(strides[i])
-        level_rows.append(((a, b), (h, w)))
+        level_rows.append((plan.bounds(strides[i]), (h, w)))
         poss.append(position_embedding_sine(h, w, C // 2, device=dev, rows=(a, b)).reshape(1, (b - a) * w, C)
                     .to(x.dtype))
         srcs.append(x.flatten(2).transpose(1, 2) + pr.level_embed.weight[i][None, None])
@@ -371,9 +597,9 @@ def predictor(pr: OneFormerQueryDecoder, multi_scale: Sequence[torch.Tensor], ma
     tasks = task_embedding[:, None, :]
     if pr.use_task_norm:
         tasks = pr.decoder_norm(tasks)
-    pe_mask = position_embedding_sine(plan.height // 4, mw, C // 2, device=dev, rows=rows4).reshape(1, -1, C)
+    pe_mask = position_embedding_sine(h4, mw, C // 2, device=dev, rows=rows4).reshape(1, -1, C)
     pe_mask = pe_mask.expand(B, -1, -1).to(mask_features.dtype)
-    proj_mask = pr.class_input_proj(mask_features).flatten(2).transpose(1, 2)
+    proj_mask = conv_rows(pr.class_input_proj, mask_features, plan.bounds(4)).flatten(2).transpose(1, 2)
 
     query_embed = pr.query_embed.weight
     tgt = tasks.expand(B, Q - 1, C)
@@ -389,11 +615,10 @@ def predictor(pr: OneFormerQueryDecoder, multi_scale: Sequence[torch.Tensor], ma
     output = torch.cat([out_t, tasks], dim=1)
     query_pos = query_embed[None].expand(B, -1, -1)
 
-    # each level's rows read only the rank's own stride-4 rows
-    mask_feats_at_level = [
-        resize_hw_rows(mask_features, size, (2, 3), rows, rows4, plan.height // 4).flatten(2)
-        for rows, size in level_rows
-    ]
+    # each level's rows of the mask features (a power-of-2 downsample reads
+    # only the rank's own stride-4 rows: nothing is fetched then)
+    mask_feats_at_level = [resize_rows(mask_features, size, plan.bounds(4), bounds).flatten(2)
+                           for bounds, size in level_rows]
     mask_feats_full = mask_features.flatten(2)
 
     def attn_mask_for(output, level):
@@ -415,31 +640,47 @@ def predictor(pr: OneFormerQueryDecoder, multi_scale: Sequence[torch.Tensor], ma
     return {"pred_logits": logits, "pred_masks": masks}
 
 
+# ---------------------------------------------------------------- entry
+# the partitioned forward of each backbone and segmentation pixel decoder
+# that models/oneformer.py builds, by the module's type
+BACKBONES: Dict[type, Callable] = {SwinTransformer: swin_features, ResNet: resnet_features,
+                                   ConvNeXt: convnext_features, DiNAT: dinat_features}
+PIXEL_DECODERS: Dict[type, Callable] = {MSDeformAttnPixelDecoder: msdeform_pixel_decoder,
+                                        BasePixelDecoder: fpn_pixel_decoder,
+                                        TransformerEncoderPixelDecoder: fpn_pixel_decoder}
+
+
 def spatial_inference(model: nn.Module, images: torch.Tensor, task_tokens: torch.Tensor) -> Dict:
     """`model.forward_segmentation(images, task_tokens)` with the image's
     rows split over the ranks of the process group (one rank without one).
     Every rank passes the same model, the whole (B, H, W, 3) image and the
     (B, 77) task tokens; each computes on its own rows (`RowPlan(H)`) and
-    exchanges only what crosses rows.
+    exchanges only what crosses rows. A rank without rows (fewer blocks of
+    ROW_BLOCK rows than ranks) takes part in every exchange.
 
     Returns pred_logits (B, Q, K+1), the same on every rank; pred_masks
-    (B, Q, h_r, W/4), this rank's rows of the stride-4 masks; `rows`, their
-    global range (a, b), and `height`, the masks' H/4 (`gather_rows(
-    out["pred_masks"], out["rows"], out["height"])` assembles the whole map).
-    Supports the Swin backbone with the MSDeformAttn pixel decoder (the
-    default config); raises for others and for a training model."""
+    (B, Q, h_r, W/4), this rank's rows of the stride-4 masks (none on a rank
+    without rows); `rows`, their global range (a, b), and `height`, the
+    masks' rows (`gather_rows(out["pred_masks"], out["rows"],
+    out["height"])` assembles the whole map). Every backbone (Swin, ResNet,
+    ConvNeXt, DiNAT) and segmentation pixel decoder (MSDeformAttn, Base,
+    TransformerEncoder) that `build_backbone` and `build_pixel_decoder`
+    select; a training model (its query decoder built with is_train) raises
+    NotImplementedError."""
+    if model.predictor.is_train:
+        raise NotImplementedError("spatial partitioning serves: build the model without is_train")
+    backbone = BACKBONES.get(type(model.backbone))
+    decoder = PIXEL_DECODERS.get(type(model.pixel_decoder))
+    if backbone is None or decoder is None:
+        raise TypeError(f"{type(model.backbone).__name__} with {type(model.pixel_decoder).__name__} is not a "
+                        f"segmentation model models/oneformer.py builds")
     plan = RowPlan(images.shape[1])
-    if not isinstance(model.backbone, SwinTransformer) or not isinstance(model.pixel_decoder,
-                                                                          MSDeformAttnPixelDecoder):
-        raise NotImplementedError(
-            f"spatial partitioning is ported for the Swin backbone with MSDeformAttnPixelDecoder, not "
-            f"{type(model.backbone).__name__} with {type(model.pixel_decoder).__name__}")
     a, b = plan.rows(1)
     with torch.no_grad():
         task = model.task_mlp(task_tokens.to(torch.float32)).to(images.dtype)
-        features = backbone_features(model.backbone, images[:, a:b], plan)
-        mask_features, _, multi_scale, strides = pixel_decoder(model.pixel_decoder, features, plan)
+        features = backbone(model.backbone, images[:, a:b], plan)
+        mask_features, multi_scale, strides = decoder(model.pixel_decoder, features, plan)
         out = predictor(model.predictor, multi_scale, mask_features, task, strides, plan)
     out["rows"] = plan.rows(4)
-    out["height"] = plan.height // 4
+    out["height"] = plan.size(4)
     return out
