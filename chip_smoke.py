@@ -15,7 +15,8 @@ predictor, sequence_reference_small, train, train_deterministic,
 train_reference_small, train_backbones (one line per config),
 train_decoders (one line per model), tools, train_entry, eval, backbones
 (one line per config), decoders (one line per model, one for the modules
-no config selects), convert, demo, eval_ade20k, spatial and multi_device.
+no config selects), convert, demo, eval_ade20k, spatial, multi_device and
+tensor_parallel.
 Each line carries `elapsed_s`, the seconds since the script started.
 Then the card's name and power limit as nvidia-smi reports them, the
 {"kernels": [...]} line, and last {"ok": true, "device": {...}}. Any failure
@@ -256,6 +257,24 @@ reports each process's request ms, peak, and the all-reduces' seconds,
 calls and bytes, one line a model; two ranks time-sharing one card measure
 no latency gain.
 
+The phase `tensor_parallel` (`uni_encoder_tpu_torch/parallel/tensor.py`)
+takes one training step of the default Swin-T model at full width on
+TP_WORLD gloo ranks sharing the card as a (1 x 2) data x model grid
+(`--tensor-parallel-child`, started before `convert`, stepping once
+multi_device's children have freed their training's memory), the JAX
+rule's parameters at TP_MIN_DIM split over the model group. It fails
+unless the split set is the JAX rule's TP_RULE_PARAMS parameters and
+TP_RULE_ELEMENTS elements, rank 0's step gathered whole is within
+multi_device's bounds (or twice the ulp spread) of multi_device's first
+one-process step (the same state, draws and pinned discrete choices), the
+ranks' replicated tensors carry equal fingerprints, K2 and K3 launch 6
+times a rank and no other kernel, a rank holds half of the split elements,
+and `tools/dryrun_multichip_torch.py TP_DRYRUN_RANKS` (the JAX dry run's
+micro config on a (2 x 2) grid of gloo ranks on the card, run beside
+`convert` .. `spatial`) exits 0 with a finite `dryrun_multichip(...)`
+line. It reports a rank's parameter and optimizer bytes against one
+process's, its peak, and the collectives' count, bytes and seconds.
+
 Bounds use the H100 SXM data-sheet peaks: 3.35 TB/s of HBM, 67 TFLOP/s
 of fp32 outside the tensor cores, 495 TFLOP/s of TF32 and 989 TFLOP/s of
 bf16 on them (at the 700 W power limit). K1 runs its semantic product on
@@ -358,6 +377,23 @@ MD_EVAL_IMAGES = 2  # synthetic val images and depth frames (1 a rank)
 MD_LOSS_RTOL, MD_D_GROUND_RTOL = 1e-5, 2e-3
 MD_GRAD_RTOL, MD_BN_RTOL = 1e-4, 1e-4
 MD_UPDATE_GAIN, MD_PARAM_LRS = 4.0, 2.0
+TP_CHILD = "--tensor-parallel-child"
+TP_WORLD = 2  # gloo ranks sharing the one card as a (1 x 2) grid: each holds the whole batch
+TP_MIN_DIM = 1024  # the JAX rule's production min_dim
+# what the JAX rule shards at TP_MIN_DIM on the default training model
+# (tests/test_torch_port_tensor_parallel.py holds the port's selection to it
+# leaf by leaf on jax.eval_shape of the JAX trainer's state)
+TP_RULE_PARAMS, TP_RULE_ELEMENTS = 72, 54_362_112
+TP_BYTES_PER_ELEMENT = 16  # fp32 parameter, gradient and AdamW's two moments
+# A rank's measured training state (the allocator's requested bytes after the step) lies
+# TP_BYTES_PER_ELEMENT bytes an element it does not hold below one process's, within this share of that saving
+TP_SAVED_RTOL = 0.02
+# Each rank's allocator capped (`torch.cuda.set_per_process_memory_fraction`): without it the two ranks
+# sharing the card race for its free memory and cuDNN, which takes the first deterministic backward
+# algorithm whose workspace it can allocate, chose a ≈19 GB workspace on one rank (peak 37.12 GB) and
+# other algorithms on the other (18.17 GB); under the cap both take the same and round alike
+TP_MEMORY_CAP_GB = 24
+TP_DRYRUN_RANKS = 4  # tools/dryrun_multichip_torch.py's (2 x 2) micro grid
 SPATIAL_CHILD = "--spatial-child"
 SPATIAL_WORLD = 2  # gloo ranks sharing the one card, each holding half of the image's rows
 SPATIAL_REQUESTS = 2  # bf16 requests timed per process and backbone, after one warm-up
@@ -2995,21 +3031,23 @@ def md_error_summary(errs):
             "byte_equal": errs["byte_equal"], "counts": errs["counts"], **errs.get("extra", {})}
 
 
-def fingerprints(state):
-    """A position-weighted 64-bit sum of the 32-bit words of every
-    parameter, gradient, buffer and optimizer moment of a TrainState, and
-    their plain sum, on the card: a word that differs changes the first
+def fingerprint(x):
+    """A position-weighted 64-bit sum of the 32-bit words of a tensor, and
+    their plain sum, on its device: a word that differs changes the first
     (its difference, below 2^32, times an odd weight below 2^31 cannot
     vanish modulo 2^64)."""
+    words = x.detach().contiguous().view(torch.int32).reshape(-1).to(torch.int64)
+    weights = (torch.arange(words.numel(), device=words.device) * 2654435761 % (1 << 31)) | 1
+    return [int((words * weights).sum()), int(words.sum())]
+
+
+def fingerprints(state):
+    """The `fingerprint` of every parameter, gradient, buffer and optimizer
+    moment of a TrainState."""
     model = state.model
     tensors = list(model.parameters()) + [p.grad for p in model.parameters() if p.grad is not None]
     tensors += list(model.buffers()) + [m for bucket in state.opt.mu + state.opt.nu for m in bucket]
-    out = []
-    for x in tensors:
-        words = x.detach().contiguous().view(torch.int32).reshape(-1).to(torch.int64)
-        weights = (torch.arange(words.numel(), device=words.device) * 2654435761 % (1 << 31)) | 1
-        out.append([int((words * weights).sum()), int(words.sum())])
-    return out
+    return [fingerprint(x) for x in tensors]
 
 
 def timed_collectives():
@@ -3031,13 +3069,20 @@ def timed_collectives():
         totals["bytes"] += x.numel() * x.element_size()
         return out
 
-    def timed_gradients(params):
+    def timed_gradients(params, *args):
         t0 = time.perf_counter()
-        gradients(params)
+        gradients(params, *args)
         totals["gradients_s"] += time.perf_counter() - t0
 
     mesh._all_reduce_, mesh.all_reduce_gradients = timed, timed_gradients
     return totals
+
+
+def requested_bytes(dev):
+    """The bytes the tensors on `dev` hold: the caching allocator's count of
+    what was asked of it (`memory_allocated` adds its rounding and the
+    slack of blocks taken whole from a cached segment, up to a MB each)."""
+    return torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
 
 
 def copy_state(dst, src):
@@ -3053,21 +3098,27 @@ def copy_state(dst, src):
     dst.step, dst.opt.count = src.step, src.opt.count
 
 
-def snapshot(state, losses):
+def snapshot(state, losses, gather=None):
     """What `md_step_errors` reads of a step, copied: (a state-like holder
     of the model's parameters, gradients and buffers and AdamW's moments,
-    the losses)."""
+    the losses). `gather(p, x)`: the whole tensor of a parameter's block, or
+    of its gradient's or moment's (`parallel/tensor.py::gather_param`, a
+    collective of the model group), for a tensor-parallel state."""
     import types
+
+    def whole(p, x):
+        return (x if gather is None else gather(p, x)).detach().clone()
 
     model = types.SimpleNamespace(
         named_parameters=lambda: iter(params.items()), named_buffers=lambda: iter(buffers.items()))
-    params = {}
-    for k, p in state.model.named_parameters():
-        params[k] = p.detach().clone()
-        params[k].grad = None if p.grad is None else p.grad.clone()
+    params, named = {}, dict(state.model.named_parameters())
+    for k, p in named.items():
+        params[k] = whole(p, p)
+        params[k].grad = None if p.grad is None else whole(p, p.grad)
     buffers = {k: b.clone() for k, b in state.model.named_buffers()}
-    opt = types.SimpleNamespace(names=state.opt.names, mu=[[m.clone() for m in b] for b in state.opt.mu],
-                                nu=[[v.clone() for v in b] for b in state.opt.nu])
+    opt = types.SimpleNamespace(names=state.opt.names, **{
+        key: [[whole(named[n], m) for n, m in zip(names, b)] for names, b in zip(state.opt.names, getattr(state.opt, key))]
+        for key in ("mu", "nu")})
     return types.SimpleNamespace(model=model, opt=opt), {k: v.clone() for k, v in losses.items()}
 
 
@@ -3147,7 +3198,9 @@ def md_train_rank(rank, rendezvous):
     mine = mesh.shard_batch(seg, rank, MD_WORLD), mesh.shard_batch(seq, rank, MD_WORLD)
     state, gen = trainer.init(seed=0), torch.Generator(device=dev).manual_seed(0)
     if rank == 0:  # one more state: one process's step, then the same step from ulp-moved images
+        before = requested_bytes(dev)
         other, ref_gen = trainer.init(seed=0), torch.Generator(device=dev).manual_seed(0)
+        other_init_bytes = requested_bytes(dev) - before  # parameters, buffers, AdamW's moments
     wait_for(rendezvous + ".go")
     totals, wrappers = timed_collectives(), kernel_wrappers()
     # The step's two discrete choices, Hungarian matching and the mask
@@ -3183,13 +3236,31 @@ def md_train_rank(rank, rendezvous):
             lrs = step_lrs(trainer.optimizer, state)
             with mock.patch.object(mesh, "active", lambda: False):
                 copy_state(other, state)
-                ref = snapshot(*trainer.train_step(other, seg, seq, draws=draws))
+                torch.cuda.reset_peak_memory_stats(dev)
+                before = requested_bytes(dev)
+                got = trainer.train_step(other, seg, seq, draws=draws)
+                after = requested_bytes(dev)
+                # one process's training state after a step (its gradients now held) and the step's peak
+                # without this rank's own state; the discrete choices the step made, kept here to pin,
+                # apart: the blocks they hold measured by moving them off the card and back
+                kept = {key: [t.cpu() for t in v] for key, v in made.items()}
+                for v in made.values():
+                    v.clear()
+                held = after - requested_bytes(dev)
+                made.update({key: [t.to(dev) for t in v] for key, v in kept.items()})
+                one_state = {"bytes": other_init_bytes + after - before - held,
+                             "choices_bytes": held,
+                             "peak_gb": (torch.cuda.max_memory_allocated(dev) - other_init_bytes) / 1e9}
+                ref = snapshot(*got)
+                del got
                 one_process = {key: torch.stack(v) for key, v in made.items()}
                 pinned.update({key: list(v) for key, v in made.items()})
                 for v in made.values():
                     v.clear()
                 copy_state(other, state)
                 spread = md_step_errors(trainer.train_step(other, *ulp_moved(seg, seq), draws=draws), ref, lrs)
+            if not steps:  # the step from the seed-0 state: phase tensor_parallel's reference too
+                save_tp_reference(ref, spread, one_process, lrs, one_state)
             torch.cuda.empty_cache()  # the batch-2 steps' blocks, for the other processes on the card
         else:
             sets = trainer.n_prediction_sets()
@@ -3347,6 +3418,7 @@ def multi_device_child(out_path, role, rendezvous, root):
         result = {"train": md_train_nccl(rendezvous)}
     gc.collect()
     torch.cuda.empty_cache()
+    open(out_path + ".freed", "w").close()  # phase tensor_parallel's ranks wait for every child's
     result["eval"] = md_eval(root)
     mesh.destroy_process_group()
     torch.save(result, out_path)
@@ -3501,6 +3573,332 @@ def multi_device_phase(dev, smi, started, meanwhile=lambda: None):
     shutil.rmtree(work, ignore_errors=True)
     return {"train_per_rank_per_step": [r["steps"][-1]["launches"] for r in ranks],
             "eval_per_rank": {role: e["launches"] for role, e in evals.items()}}
+
+
+def tp_dir():
+    """Phase tensor_parallel's work directory (under build/)."""
+    from uni_encoder_tpu_torch import kernels
+
+    return os.path.join(os.path.dirname(kernels.BUILD_DIR), "tensor_parallel")
+
+
+def snapshot_dict(snap):
+    """A `snapshot` as plain dicts and lists of tensors (what torch.save
+    takes)."""
+    state, losses = snap
+    params = dict(state.model.named_parameters())
+    return {"params": params, "grads": {k: p.grad for k, p in params.items()},
+            "buffers": dict(state.model.named_buffers()), "names": state.opt.names, "mu": state.opt.mu,
+            "nu": state.opt.nu, "losses": losses}
+
+
+def snapshot_from(d):
+    """The `snapshot` of a `snapshot_dict`."""
+    import types
+
+    params = d["params"]
+    for k, p in params.items():
+        p.grad = d["grads"][k]
+    model = types.SimpleNamespace(named_parameters=lambda: iter(params.items()),
+                                  named_buffers=lambda: iter(d["buffers"].items()))
+    return types.SimpleNamespace(model=model, opt=types.SimpleNamespace(names=d["names"], mu=d["mu"], nu=d["nu"])), \
+        d["losses"]
+
+
+def save_tp_reference(ref, spread, choices, lrs, resident):
+    """Phase multi_device's first one-process step (its snapshot, its
+    ulp-moved spread, its pinned discrete choices and learning rates, and
+    `resident`: the bytes the allocator holds for its training state after
+    the step, parameters, buffers, gradients and moments, and the step's
+    peak GB) for
+    phase tensor_parallel, which takes the same step from the same state and
+    draws on a (1 x 2) grid: the choices and the step in two files, each
+    written whole before it appears."""
+    os.makedirs(tp_dir(), exist_ok=True)
+    for name, obj in (("reference.pt", {"ref": snapshot_dict(ref), "spread": spread, "lrs": lrs,
+                                         "resident": resident}),
+                      ("choices.pt", {k: v.cpu() for k, v in choices.items()})):
+        path = os.path.join(tp_dir(), name)
+        torch.save(obj, path + ".tmp")
+        os.replace(path + ".tmp", path)
+
+
+def tp_fingerprints(state):
+    """The `fingerprint` of every parameter, gradient, AdamW moment and
+    buffer of a tensor-parallel TrainState by name ("param ...", "grad ...",
+    "mu ...", "nu ...", "buffer ..."), and the names of those of parameters
+    split over the model group."""
+    from uni_encoder_tpu_torch.parallel import tensor
+
+    named = dict(state.model.named_parameters())
+    out = {}
+    for n, p in named.items():
+        out["param " + n] = fingerprint(p)
+        if p.grad is not None:
+            out["grad " + n] = fingerprint(p.grad)
+    for key in ("mu", "nu"):
+        for names, bucket in zip(state.opt.names, getattr(state.opt, key)):
+            out.update({f"{key} {n}": fingerprint(m) for n, m in zip(names, bucket)})
+    out.update({"buffer " + n: fingerprint(b) for n, b in state.model.named_buffers()})
+    return out, sorted(k for k in out if not k.startswith("buffer ") and tensor.shard_of(named[k.split(" ", 1)[1]]))
+
+
+def tp_rank(rank, rendezvous):
+    """A rank of phase tensor_parallel: a (1 x 2) grid of gloo ranks sharing
+    the card, the default Swin-T model at full width (deterministic, fp32)
+    with the production rule's parameters (TP_MIN_DIM) split over the model
+    group, train's whole synthetic batch (the data axis is 1), one step with
+    the draws of a generator seeded 0, after phase multi_device's children
+    freed their training's memory: the step at one process's discrete
+    choices (pinned from multi_device's first step, the same step), its
+    seconds, collectives, every kernel's launches, peak GB, its training
+    state's allocator bytes after the step (from before the model is
+    built), its replicated gradients' fingerprints before their mean and
+    its `tp_fingerprints`; then the step gathered whole, and on rank 0
+    `md_step_errors` against multi_device's one-process step (its ulp spread
+    as `spread`) and that step's training state bytes and peak; the
+    selection and the elements held."""
+    from uni_encoder_tpu_torch.config import Config
+    from uni_encoder_tpu_torch.parallel import mesh, tensor
+    from uni_encoder_tpu_torch.training import criterion as criterion_module
+    from uni_encoder_tpu_torch.training.train_step import Trainer
+
+    dev = torch.device("cuda", 0)
+    mesh.init_process_group("gloo", rank, TP_WORLD, "file://" + rendezvous)
+    mesh.init_grid(TP_WORLD)
+    cfg = Config()
+    n_texts = cfg.model.one_former.num_object_queries - cfg.model.text_encoder.n_ctx
+    trainer = Trainer(cfg, device=dev, deterministic=True)
+    seg, seq = (mesh.shard_batch(b) for b in train_batches(
+        0, TRAIN_BATCH, cfg.input.seg_crop_train, cfg.input.depth_hw_train, TRAIN_SLOTS, TRAIN_VALID, n_texts, dev))
+    before = requested_bytes(dev)
+    model = trainer.build_model(seed=0)
+    specs = tensor.shard_params(model, mesh.model_group(), TP_MIN_DIM)
+    state, gen = trainer.init(model=model), torch.Generator(device=dev).manual_seed(0)
+    init_bytes = requested_bytes(dev) - before  # the blocks kept, the whole weights freed
+    md_work = os.path.join(os.path.dirname(tp_dir()), "multi_device")
+    t_wait = time.perf_counter()
+    for role in [f"train_rank{r}" for r in range(MD_WORLD)] + ["train_nccl"]:
+        wait_for(os.path.join(md_work, f"{role}.pt.freed"))
+    wait_for(os.path.join(tp_dir(), "choices.pt"))
+    rec = {"waited_s": time.perf_counter() - t_wait}
+    choices = {k: v.to(dev) for k, v in torch.load(os.path.join(tp_dir(), "choices.pt")).items()}
+    made = {"matching": 0, "points": 0}
+    originals = {"assign_on_host": criterion_module.assign_on_host,
+                 "uncertainty_points": criterion_module.uncertainty_points}
+
+    def pinned(key, fn):
+        def run(*args):
+            fn(*args)  # the rank's own choice is computed (and its host copy counted), then one process's taken
+            made[key] += 1
+            return choices[key][made[key] - 1]
+        return run
+
+    criterion_module.assign_on_host = pinned("matching", originals["assign_on_host"])
+    criterion_module.uncertainty_points = pinned("points", originals["uncertainty_points"])
+    totals, wrappers = timed_collectives(), kernel_wrappers()
+    reset_launches(*wrappers.values())
+    # the replicated gradients before their mean over the world: the same bytes on both ranks where both
+    # took the same convolution algorithms
+    reduce_gradients, before_mean = mesh.all_reduce_gradients, {}
+
+    def fingerprinted(params, group=None):
+        params = list(params)
+        if group is None:
+            before_mean.update({id(p): fingerprint(p.grad) for p in params if p.grad is not None})
+        reduce_gradients(params, group)
+
+    mesh.all_reduce_gradients = fingerprinted
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec["free_gb_at_step"] = torch.cuda.mem_get_info(dev)[0] / 1e9
+    before = requested_bytes(dev)
+    rec["resident_gb"] = torch.cuda.memory_allocated(dev) / 1e9
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = trainer.train_step(state, seg, seq, gen)
+    torch.cuda.synchronize()
+    rec["step_s"] = time.perf_counter() - t0
+    # the training state after the step (its gradients now held), as multi_device measures one process's
+    rec["state_bytes"] = init_bytes + requested_bytes(dev) - before
+    mesh.all_reduce_gradients = reduce_gradients
+    rec["replicated_grads_before_mean"] = [before_mean[id(p)] for p in state.model.parameters()
+                                           if id(p) in before_mean]
+    rec["collectives"] = dict(totals)
+    rec["launches"] = {key: f.launches for key, f in wrappers.items()}
+    rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    rec["pinned_calls"] = dict(made)
+    for name, fn in originals.items():
+        setattr(criterion_module, name, fn)
+    rec["fingerprints"], rec["sharded_tensors"] = tp_fingerprints(state)
+    params = dict(state.model.named_parameters())
+    rec["specs"] = {n: list(s) for n, s in specs.items()}
+    rec["elements"] = {"rank": sum(p.numel() for p in params.values()),
+                       "whole": sum(int(np.prod(tensor.whole_shape(p))) for p in params.values()),
+                       "sharded_rank": sum(p.numel() for p in params.values() if tensor.shard_of(p)),
+                       "sharded_whole": sum(int(np.prod(tensor.whole_shape(p))) for p in params.values()
+                                            if tensor.shard_of(p))}
+    t0 = time.perf_counter()
+    whole = snapshot(*got, gather=tensor.gather_param)
+    del got
+    if rank == 0:
+        d = torch.load(os.path.join(tp_dir(), "reference.pt"), map_location=dev)
+        rec["errors"] = md_step_errors(whole, snapshot_from(d["ref"]), d["lrs"])
+        rec["errors"]["spread"] = d["spread"]
+        rec["one_process"] = d["resident"]
+    rec["compare_s"] = time.perf_counter() - t0
+    mesh.destroy_process_group()
+    return rec
+
+
+def tensor_parallel_child(out_path, rank, rendezvous):
+    """A child of phase tensor_parallel (`tp_rank`), saved to `out_path`;
+    its allocator capped at TP_MEMORY_CAP_GB."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.set_per_process_memory_fraction(TP_MEMORY_CAP_GB * 1e9 / total)
+    torch.save(tp_rank(int(rank), rendezvous), out_path)
+
+
+def start_tensor_parallel():
+    """Start phase tensor_parallel's TP_WORLD children (`TP_CHILD`): each
+    sets up its sharded model and batch, then waits for multi_device's
+    children to free their training's memory and for its reference."""
+    t0 = time.perf_counter()
+    shutil.rmtree(tp_dir(), ignore_errors=True)
+    os.makedirs(tp_dir())
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    rendezvous = os.path.join(tp_dir(), "rendezvous")
+    children = []
+    for r in range(TP_WORLD):
+        path = os.path.join(tp_dir(), f"rank{r}.pt")
+        children.append((start_child(TP_CHILD, path, str(r), rendezvous, env=env), path))
+        kill_at_exit(children[-1][0])
+    return {"children": children, "start_s": time.perf_counter() - t0}
+
+
+def start_tp_dryrun():
+    """Start `tools/dryrun_multichip_torch.py TP_DRYRUN_RANKS` (gloo ranks
+    sharing the card, one thread each), its output to files in `tp_dir()`."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    tool = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "dryrun_multichip_torch.py")
+    log = os.path.join(tp_dir(), "dryrun")
+    with open(log + ".out", "w") as out, open(log + ".err", "w") as err:
+        proc = subprocess.Popen([sys.executable, tool, str(TP_DRYRUN_RANKS), "--timeout", "600"], env=env,
+                                stdout=out, stderr=err)
+    kill_at_exit(proc)
+    return proc, log, time.perf_counter()
+
+
+def finish_tp_dryrun(started):
+    """Wait for the dry run `start_tp_dryrun` started: its exit code, output
+    lines, error output's tail and seconds."""
+    proc, log, t0 = started
+    proc.wait(timeout=600)
+    seconds = time.perf_counter() - t0
+    with open(log + ".out") as f_out, open(log + ".err") as f_err:
+        out, err = f_out.read(), f_err.read()
+    return {"returncode": proc.returncode, "lines": out.strip().splitlines(), "stderr": err, "seconds": seconds}
+
+
+def tensor_parallel_phase(dev, smi, started, dryrun):
+    """Tensor parallelism on the card:
+    (a) TP_WORLD gloo ranks as a (1 x 2) grid (`tp_rank`) take one step of
+        the shipped Swin-T config at full width with the production rule's
+        parameters split over the model group: the split set is the JAX
+        rule's TP_RULE_PARAMS parameters and TP_RULE_ELEMENTS elements; rank
+        0's step, gathered whole, within multi_device's bounds (MD_*, or
+        twice the ulp spread) of one process's step from the same state and
+        draws at the same discrete choices (multi_device's first step); the
+        replicated parameters, gradients, moments and buffers carry equal
+        fingerprints on both ranks; K2 and K3 6 launches a rank, K1, K4 and K5
+        none; a rank holds half of the split elements, and its training
+        state after the step, measured by the allocator, lies
+        TP_BYTES_PER_ELEMENT bytes an element it does not hold below one
+        process's (multi_device's rank 0), within TP_SAVED_RTOL; under
+        TP_MEMORY_CAP_GB both ranks took the same algorithms (their
+        replicated gradients the same bytes before the mean);
+    (b) `tools/dryrun_multichip_torch.py TP_DRYRUN_RANKS` (a (2 x 2) grid of
+        the JAX dry run's micro config, 4 gloo ranks on the card; run
+        earlier, `dryrun` is `finish_tp_dryrun`'s) exited 0 with its
+        `dryrun_multichip(...)` line and a finite loss.
+    Two ranks time-sharing one card through gloo's host path measure no
+    speed: the memory a rank saves and the collectives' count, MB and
+    seconds are what this layout costs."""
+    from uni_encoder_tpu_torch.config import Config
+
+    t_phase = time.perf_counter()
+    children = started["children"]
+    ranks = finish_children([c for c, _ in children], [p for _, p in children], timeout=600)
+    lines = dryrun["lines"]
+    dry = re.fullmatch(r"dryrun_multichip\(n=(\d+), mesh=\((\d+), (\d+)\)\): loss=(\S+) seg=(\S+) mono=(\S+)",
+                       lines[-1] if lines else "")
+    enc_layers = Config().model.sem_seg_head.transformer_enc_layers
+    r0 = ranks[0]
+    el = r0["elements"]
+    one_process_bytes = TP_BYTES_PER_ELEMENT * el["whole"]
+    rank_bytes = [TP_BYTES_PER_ELEMENT * r["elements"]["rank"] for r in ranks]
+    # measured: one process's training state after its step (multi_device's rank 0) against each rank's
+    counted_saving = [TP_BYTES_PER_ELEMENT * (r["elements"]["sharded_whole"] - r["elements"]["sharded_rank"])
+                      for r in ranks]
+    measured_saving = [r0["one_process"]["bytes"] - r["state_bytes"] for r in ranks]
+    replicated = sorted(set(r0["fingerprints"]) - set(r0["sharded_tensors"]))
+    replicated_differing = [k for k in replicated if r0["fingerprints"][k] != ranks[1]["fingerprints"].get(k)]
+    checks = {
+        "sharded_set_is_the_jax_rule": all(len(r["specs"]) == TP_RULE_PARAMS
+                                           and r["elements"]["sharded_whole"] == TP_RULE_ELEMENTS for r in ranks)
+        and ranks[1]["specs"] == r0["specs"],
+        "replicated_fingerprints_equal": not replicated_differing and len(replicated) > 0,
+        "blocks_differ": all(r0["fingerprints"][k] != ranks[1]["fingerprints"][k] for k in r0["sharded_tensors"]),
+        "within_md_bounds": not md_within_bounds(r0["errors"])[0],
+        "k2_k3_6_k1_k4_k5_0_per_rank": all(
+            r["launches"] == {"k1": 0, "k2": enc_layers, "k3": enc_layers, "k4": 0, "k5": 0} for r in ranks),
+        "rank_holds_half_the_split_elements": all(
+            2 * r["elements"]["sharded_rank"] == TP_RULE_ELEMENTS for r in ranks),
+        "measured_state_bytes_saved_as_counted": all(
+            abs(m - c) <= TP_SAVED_RTOL * c for m, c in zip(measured_saving, counted_saving)),
+        "same_algorithms_on_both_ranks": ranks[0]["replicated_grads_before_mean"]
+        == ranks[1]["replicated_grads_before_mean"] and len(ranks[0]["replicated_grads_before_mean"]) > 0,
+        "pinned_choices_used": all(r["pinned_calls"]["matching"] == 1 and r["pinned_calls"]["points"] > 0
+                                   for r in ranks),
+        "dryrun_exit_0": dryrun["returncode"] == 0,
+        "dryrun_line_finite": bool(dry) and dry.group(1, 2, 3) == (str(TP_DRYRUN_RANKS), "2", "2")
+        and all(np.isfinite(float(v)) for v in dry.group(4, 5, 6)),
+    }
+    emit("tensor_parallel", grid=[1, TP_WORLD], backend_on_the_card="gloo", min_dim=TP_MIN_DIM,
+         batch={"global": TRAIN_BATCH, "per_rank": TRAIN_BATCH}, dtype="float32", deterministic=True,
+         sharded={"params": len(r0["specs"]), "elements": el["sharded_whole"],
+                  "column": sum(s == [None, "model"] for s in r0["specs"].values()),
+                  "row": sum(s == ["model", None] for s in r0["specs"].values()), "of_elements": el["whole"]},
+         bytes={"one_process": one_process_bytes, "per_rank": rank_bytes,
+                "saved_per_rank": [one_process_bytes - b for b in rank_bytes],
+                "counting": f"{TP_BYTES_PER_ELEMENT} bytes an fp32 element: parameter, gradient, AdamW's two moments"},
+         measured_state_bytes={"one_process": r0["one_process"]["bytes"],
+                               "per_rank": [r["state_bytes"] for r in ranks],
+                               "saved_per_rank": measured_saving, "counted_saving": counted_saving,
+                               "rtol": TP_SAVED_RTOL,
+                               "how": "allocator's requested bytes from before the model is built to after the step",
+                               "one_process_choices_kept_apart": r0["one_process"]["choices_bytes"]},
+         peak_gb={"per_rank": [r["peak_gb"] for r in ranks], "cap_gb": TP_MEMORY_CAP_GB,
+                  "one_process_step": r0["one_process"]["peak_gb"],
+                  "free_gb_at_step": [r["free_gb_at_step"] for r in ranks],
+                  "replicated_grads_differing_before_mean": sum(
+                      a != b for a, b in zip(*(r["replicated_grads_before_mean"] for r in ranks)))},
+         per_rank=[{"step_s": r["step_s"], "collectives": r["collectives"],
+                    "collectives_share": r["collectives"]["s"] / r["step_s"], "peak_gb": r["peak_gb"],
+                    "resident_gb": r["resident_gb"], "launches": r["launches"], "waited_s": r["waited_s"],
+                    "compare_s": r["compare_s"]} for r in ranks],
+         fingerprints={"replicated": len(replicated), "replicated_differing": replicated_differing[:20],
+                       "sharded": len(r0["sharded_tensors"])},
+         vs_one_process=md_error_summary(r0["errors"]), one_process_spread=md_error_summary(r0["errors"]["spread"]),
+         within_bounds=dict(zip(("past", "by_spread_alone"), md_within_bounds(r0["errors"]))),
+         dryrun={"lines": lines[-4:], "seconds": dryrun["seconds"],
+                 "stderr_tail": dryrun["stderr"][-2000:] if dryrun["returncode"] else ""},
+         start_s=started["start_s"], checks=checks, seconds=time.perf_counter() - t_phase, card=smi,
+         note="two gloo ranks time-share one card through the host: no speed is measured")
+    fail_unless("tensor_parallel", checks)
+    shutil.rmtree(tp_dir(), ignore_errors=True)
+    return {"per_rank_per_step": [r["launches"] for r in ranks]}
 
 
 def spatial_config(key):
@@ -4559,6 +4957,8 @@ def main():
     # phases multi_device's and spatial's children set themselves up beside
     # the next phases
     multi_device = start_multi_device()
+    tensor_parallel = start_tensor_parallel()
+    tp_dryrun = start_tp_dryrun()  # beside the next phases: the card has room until multi_device trains
     spatial = start_spatial()
     with tempfile.TemporaryDirectory() as convert_root:
         converted = convert_phase(dev, smi, convert_root)
@@ -4572,9 +4972,13 @@ def main():
     spatial_launches = spatial_phase(dev, smi, spatial)
 
     # ---------------- data-parallel training and sharded evaluation: ranks
-    # in child processes sharing the card
+    # in child processes sharing the card (full while they train: the
+    # tensor_parallel dry run has ended before); phase tensor_parallel's ranks
+    # take their step once multi_device's have freed their training's memory
+    tp_dryrun = finish_tp_dryrun(tp_dryrun)
     multi_device_launches = multi_device_phase(
         dev, smi, multi_device, meanwhile=lambda: yardsticks.update(k5=compile_yardstick(k5_compile)))
+    tensor_parallel_launches = tensor_parallel_phase(dev, smi, tensor_parallel, tp_dryrun)
     yardsticks["k5"] = time_yardstick(yardsticks["k5"], functorch_patch(donated_buffer=False))
     for key, fields in yardsticks.items():
         results[key]["library_ms"] = fields.get("ms")
@@ -4630,6 +5034,8 @@ def main():
                          "eval_per_rank": {role: n[key]
                                            for role, n in multi_device_launches["eval_per_rank"].items()}},
                      "spatial_launches": {role: n[key] for role, n in spatial_launches.items()},
+                     "tensor_parallel_launches": {"per_rank_per_step": [
+                         n[key] for n in tensor_parallel_launches["per_rank_per_step"]]},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r.get("library_ms"),
@@ -4647,9 +5053,10 @@ def main():
 
 if __name__ == "__main__":
     if len(sys.argv) >= 4 and sys.argv[1] in (DETERMINISTIC_CHILD, CPU_STEP_CHILD, MULTI_DEVICE_CHILD,
-                                              SPATIAL_CHILD):
+                                              SPATIAL_CHILD, TP_CHILD):
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         {DETERMINISTIC_CHILD: train_deterministic_child, CPU_STEP_CHILD: cpu_step_child,
-         MULTI_DEVICE_CHILD: multi_device_child, SPATIAL_CHILD: spatial_child}[sys.argv[1]](*sys.argv[2:])
+         MULTI_DEVICE_CHILD: multi_device_child, SPATIAL_CHILD: spatial_child,
+         TP_CHILD: tensor_parallel_child}[sys.argv[1]](*sys.argv[2:])
     else:
         main()

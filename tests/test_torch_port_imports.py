@@ -6,7 +6,7 @@ fresh interpreter; a source scan backs it up for imports that only run
 inside functions. The port's sources, `evaluate_torch.py`, `train_torch.py`,
 `demo_torch.py`, `tools/convert_checkpoint_torch.py`,
 `tools/calc_throughput_torch.py`, `tools/analyze_model_torch.py`,
-`tools/k4_compare_torch.py`, `chip_smoke.py` and `k5_variants.py` are checked. PIL and cv2 are imported inside functions in
+`tools/k4_compare_torch.py`, `tools/dryrun_multichip_torch.py`, `chip_smoke.py` and `k5_variants.py` are checked. PIL and cv2 are imported inside functions in
 named places only (CALL_TIME_IMPORTS: JPEG files, the demo's text labels,
 COCO polygons), matplotlib nowhere, and the train mappers import neither
 PIL nor cv2 when they run.
@@ -35,6 +35,7 @@ sys.path.insert(0, "tools")
 import analyze_model_torch
 import calc_throughput_torch
 import convert_checkpoint_torch
+import dryrun_multichip_torch
 import k4_compare_torch
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "flax", "jaxlib", "uni_encoder_tpu", "PIL", "cv2", "matplotlib"))
@@ -64,6 +65,7 @@ def _sources():
     yield os.path.join(REPO, "tools", "calc_throughput_torch.py")
     yield os.path.join(REPO, "tools", "analyze_model_torch.py")
     yield os.path.join(REPO, "tools", "k4_compare_torch.py")
+    yield os.path.join(REPO, "tools", "dryrun_multichip_torch.py")
 
 
 # the only places that import PIL or cv2, each inside the function that needs it

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel import mesh
+from ..parallel import mesh, tensor
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
@@ -48,7 +48,12 @@ class MultiheadAttention(nn.Module):
     additive mask of the same shapes. Logits follow the activation dtype and
     the softmax is the max-subtracted form, as in the JAX copy, so a fully
     masked row gives NaN on both sides.
+
+    Under tensor parallelism (`parallel/tensor.py`) `in_proj_shard` is the
+    `Shard` of an `in_proj_weight` split by its output rows.
     """
+
+    in_proj_shard = None
 
     def __init__(self, embed_dim: int, num_heads: int):
         super().__init__()
@@ -70,9 +75,14 @@ class MultiheadAttention(nn.Module):
         B, Lq, _ = query.shape
         Lk = key.shape[1]
         w, b = self.in_proj_weight, self.in_proj_bias
-        q = F.linear(query, w[:E], b[:E]).view(B, Lq, H, Dh).transpose(1, 2)
-        k = F.linear(key, w[E : 2 * E], b[E : 2 * E]).view(B, Lk, H, Dh).transpose(1, 2)
-        v = F.linear(value, w[2 * E :], b[2 * E :]).view(B, Lk, H, Dh).transpose(1, 2)
+        if self.in_proj_shard is None:
+            q, k, v = F.linear(query, w[:E], b[:E]), F.linear(key, w[E : 2 * E], b[E : 2 * E]), \
+                F.linear(value, w[2 * E :], b[2 * E :])
+        else:
+            q, k, v = tensor.column_in_proj((query, key, value), w, b, self.in_proj_shard)
+        q = q.reshape(B, Lq, H, Dh).transpose(1, 2)
+        k = k.reshape(B, Lk, H, Dh).transpose(1, 2)
+        v = v.reshape(B, Lk, H, Dh).transpose(1, 2)
 
         logits = torch.matmul(q, k.transpose(-2, -1)) / math.sqrt(Dh)
         if attn_mask is not None:
@@ -161,8 +171,9 @@ class FrozenBatchNorm(nn.Module):
     unbiased batch variance, in place, as the JAX copy's `batch_stats`
     update does. In a process group (`parallel/mesh.py`) the batch is the
     global one (SyncBN, as the JAX copy under a sharded jit): the sums of x
-    and x^2 are summed over the ranks, the gradient flowing back through
-    that sum, and every rank makes the same update.
+    and x^2 are summed over the ranks of the data group (the whole world
+    without tensor parallelism), the gradient flowing back through that
+    sum, and every rank makes the same update.
 
     Like d2's `FrozenBatchNorm2d`, its state dict is exactly `weight`,
     `bias`, `running_mean` and `running_var`: no `num_batches_tracked`,
@@ -187,8 +198,8 @@ class FrozenBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training and not self.use_running_average:
             axes = tuple(range(x.ndim - 1))
-            n = x.numel() // x.shape[-1] * mesh.world()  # every rank holds as many rows
-            sums = mesh.all_reduce_sum(torch.cat([x.sum(dim=axes), (x * x).sum(dim=axes)]))
+            n = x.numel() // x.shape[-1] * mesh.data_world()  # every data rank holds as many rows
+            sums = mesh.all_reduce_sum(torch.cat([x.sum(dim=axes), (x * x).sum(dim=axes)]), mesh.data_group())
             mean, mean_sq = (sums / n).chunk(2)
             var = mean_sq - mean * mean
             with torch.no_grad():

@@ -1,5 +1,5 @@
-"""Data parallelism over processes (the port's counterpart of
-`uni_encoder_tpu/parallel/mesh.py`).
+"""Data parallelism over processes, and the (data x model) grid of tensor
+parallelism (the port's counterpart of `uni_encoder_tpu/parallel/mesh.py`).
 
 The JAX trainer is one GSPMD program over a mesh whose `data` axis shards
 the global batch, with the state replicated; every reduction over the batch
@@ -32,7 +32,18 @@ rank per card, and gloo on the CPU.
 
 Without a process group `rank()` is 0, `world()` is 1 and every collective
 here is the identity; with one, the collectives run even when the group
-holds one rank.
+holds one rank (but over a grid's group of one rank, where a sum is the
+identity, they do not).
+
+Tensor parallelism (`parallel/tensor.py`) splits the ranks into a grid of
+D x M (`init_grid(M)`, the JAX `make_mesh(n, model_parallel=M)`): rank r
+has data index r // M and model index r % M. The M ranks of a model group
+hold the same rows of the global batch and each holds a block of the
+sharded parameters; the D ranks of a data group hold the same blocks and
+other rows. Every reduction over the batch then runs over the data group
+(`data_group()`, `data_rank()`, `data_world()`), which each collective
+here takes as `group`; without a grid, or with M = 1, the data group is
+the whole world and every reduction is what it was without the grid.
 """
 
 from __future__ import annotations
@@ -49,6 +60,10 @@ import torch.distributed as dist
 BUCKET_BYTES = 256 << 20
 # how long a rank waits for the others (set-up and each collective)
 TIMEOUT_S = 600
+
+
+# the (data x model) grid of `init_grid`, None without one
+_GRID: Optional[Dict] = None
 
 
 def active() -> bool:
@@ -89,8 +104,87 @@ def init_process_group(backend: str, rank: int, world: int, init_method: str,
 
 
 def destroy_process_group() -> None:
+    global _GRID
+    _GRID = None
     if active():
         dist.destroy_process_group()
+
+
+# ------------------------------------------------------------------- grid
+def init_grid(model_parallel: int) -> None:
+    """Split the process group's ranks into a grid of world // M data
+    indices by M = `model_parallel` model indices (the JAX `make_mesh`'s
+    `np.asarray(devices).reshape(n // M, M)`): rank r gets data index
+    r // M and model index r % M. Builds every data group (the ranks of one
+    model index) and model group (the ranks of one data index) with
+    `dist.new_group`, which every rank must call, in the same order. Raises
+    unless M divides the world. With M = 1 the data group is the whole
+    world, as without a grid."""
+    global _GRID
+    if not active():
+        raise RuntimeError("init_grid needs a process group (init_process_group first)")
+    n, m = world(), model_parallel
+    if m < 1 or n % m:
+        raise ValueError(f"model_parallel {m} does not divide the {n} ranks: give a divisor of {n}")
+    d, r = n // m, rank()
+    data_groups = [dist.new_group([i * m + j for i in range(d)]) for j in range(m)] if m > 1 else [None]
+    model_groups = [dist.new_group([i * m + j for j in range(m)]) for i in range(d)]
+    _GRID = {"model_parallel": m, "data_index": r // m, "model_index": r % m,
+             "data_group": data_groups[r % m], "model_group": model_groups[r // m]}
+
+
+def _grid() -> Optional[Dict]:
+    """The grid, where one is set and its process group is active."""
+    return _GRID if _GRID and active() else None
+
+
+def model_parallel() -> int:
+    """M, the ranks of a model group (1 without a grid)."""
+    return _grid()["model_parallel"] if _grid() else 1
+
+
+def data_rank() -> int:
+    """This rank's data index: the block of the global batch it holds."""
+    return _grid()["data_index"] if _grid() else rank()
+
+
+def data_world() -> int:
+    """D, the ranks of a data group: how many blocks the global batch is
+    split into."""
+    return world() // model_parallel()
+
+
+def model_rank() -> int:
+    """This rank's model index: the block of each sharded parameter it
+    holds."""
+    return _grid()["model_index"] if _grid() else 0
+
+
+def data_group():
+    """The group the batch reductions run over (None: the whole world)."""
+    return _grid()["data_group"] if _grid() else None
+
+
+def model_group():
+    """The ranks that hold this rank's rows and the other blocks of the
+    sharded parameters (None without a grid)."""
+    return _grid()["model_group"] if _grid() else None
+
+
+def group_size(group) -> int:
+    """The ranks of `group` (None: the whole world)."""
+    return world() if group is None else dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    """This rank's index in `group` (None: the whole world)."""
+    return rank() if group is None else dist.get_rank(group)
+
+
+def _alone(group) -> bool:
+    """Whether `group` is a grid's group of one rank, over which a sum is
+    the identity (the whole world always runs its collectives)."""
+    return group is not None and group_size(group) == 1
 
 
 def rank_device(local_rank: int, device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -127,11 +221,13 @@ def check_divides(batch: int, n: int, what: str = "--batch") -> int:
     return batch // n
 
 
-def shard_batch(batch, rank: int, world: int):
+def shard_batch(batch, rank: Optional[int] = None, world: Optional[int] = None):
     """A rank's rows of a global batch: the contiguous block `rank` of
     `world` along the first axis of every tensor or array of a (nested)
-    dict (the counterpart of the JAX `shard_batch` / `batch_shardings`).
-    Raises when a batch does not divide by `world`."""
+    dict (the counterpart of the JAX `shard_batch` / `batch_shardings`),
+    by default this rank's data index of the data world. Raises when a
+    batch does not divide by `world`."""
+    rank, world = data_rank() if rank is None else rank, data_world() if world is None else world
     if isinstance(batch, dict):
         return {k: shard_batch(v, rank, world) for k, v in batch.items()}
     b = check_divides(batch.shape[0], world, "a batch of")
@@ -139,44 +235,47 @@ def shard_batch(batch, rank: int, world: int):
 
 
 # ------------------------------------------------------------- collectives
-def _all_reduce_(x: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """Reduce `x` over the ranks by `op` (the sum), in place."""
-    dist.all_reduce(x, op=op)
+def _all_reduce_(x: torch.Tensor, op=dist.ReduceOp.SUM, group=None) -> torch.Tensor:
+    """Reduce `x` over the ranks of `group` (None: all) by `op` (the sum),
+    in place."""
+    dist.all_reduce(x, op=op, group=group)
     return x
 
 
 class _SumOverRanks(torch.autograd.Function):
-    """y = the sum over the ranks of x; the gradient of x is the sum over
-    the ranks of the gradients of y."""
+    """y = the sum over the ranks of `group` of x; the gradient of x is the
+    sum over those ranks of the gradients of y."""
 
     @staticmethod
-    def forward(ctx, x):
-        return _all_reduce_(x.clone(memory_format=torch.contiguous_format))
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce_(x.clone(memory_format=torch.contiguous_format), dist.ReduceOp.SUM, group)
 
     @staticmethod
     def backward(ctx, grad):
-        return _all_reduce_(grad.clone(memory_format=torch.contiguous_format))
+        return _all_reduce_(grad.clone(memory_format=torch.contiguous_format), dist.ReduceOp.SUM, ctx.group), None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum over the ranks of `x`, with gradients (identity without a
-    group)."""
-    if not active():
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum over the ranks of `group` (None: all) of `x`, with gradients
+    (identity without a process group)."""
+    if not active() or _alone(group):
         return x
     if torch.is_grad_enabled() and x.requires_grad:
-        return _SumOverRanks.apply(x)
-    return _all_reduce_(x.detach().clone(memory_format=torch.contiguous_format))
+        return _SumOverRanks.apply(x, group)
+    return _all_reduce_(x.detach().clone(memory_format=torch.contiguous_format), dist.ReduceOp.SUM, group)
 
 
-def all_gather(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's `x` stacked along the first axis in rank order (each
-    rank's of the same shape), with gradients: a zero buffer of `world`
-    blocks, this rank's block `x`, summed over the ranks."""
-    if not active():
+def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's `x` of `group` (None: all) stacked along the first axis
+    in the group's rank order (each rank's of the same shape), with
+    gradients: a zero buffer of one block a rank, this rank's block `x`,
+    summed over the ranks."""
+    if not active() or _alone(group):
         return x
-    blocks = [torch.zeros_like(x)] * world()
-    blocks[rank()] = x
-    return all_reduce_sum(torch.cat(blocks))
+    blocks = [torch.zeros_like(x)] * group_size(group)
+    blocks[group_rank(group)] = x
+    return all_reduce_sum(torch.cat(blocks), group)
 
 
 def all_reduce_max(x: torch.Tensor) -> torch.Tensor:
@@ -245,15 +344,15 @@ def fetch_rows(x: torch.Tensor, wants: Sequence, owned: Sequence[Tuple[int, int]
     return out
 
 
-def all_reduce_gradients(params: Iterable[torch.Tensor]) -> None:
-    """Replace each parameter's gradient by its mean over the ranks, in
-    buckets of at most BUCKET_BYTES (one all-reduce per bucket). Parameters
-    without a gradient are skipped: every rank runs the same graph, so they
-    are the same on every rank."""
-    if not active():
+def all_reduce_gradients(params: Iterable[torch.Tensor], group=None) -> None:
+    """Replace each parameter's gradient by its mean over the ranks of
+    `group` (None: all), in buckets of at most BUCKET_BYTES (one all-reduce
+    per bucket). Parameters without a gradient are skipped: every rank runs
+    the same graph, so they are the same on every rank."""
+    if not active() or _alone(group):
         return
     grads = [p.grad for p in params if p.grad is not None]
-    n = world()
+    n = group_size(group)
     buckets: List[List[torch.Tensor]] = []
     size = 0
     for g in grads:
@@ -263,7 +362,7 @@ def all_reduce_gradients(params: Iterable[torch.Tensor]) -> None:
         buckets[-1].append(g)
         size += g.numel() * g.element_size()
     for bucket in buckets:
-        flat = _all_reduce_(torch.cat([g.reshape(-1) for g in bucket]))
+        flat = _all_reduce_(torch.cat([g.reshape(-1) for g in bucket]), dist.ReduceOp.SUM, group)
         flat.div_(n)
         offset = 0
         for g in bucket:
@@ -271,12 +370,13 @@ def all_reduce_gradients(params: Iterable[torch.Tensor]) -> None:
             offset += g.numel()
 
 
-def mean_over_ranks(values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The mean over the ranks of each 0-d tensor of `values`, in one
-    all-reduce (unchanged without a group)."""
-    if not active():
+def mean_over_ranks(values: Dict[str, torch.Tensor], group=None) -> Dict[str, torch.Tensor]:
+    """The mean over the ranks of `group` (None: all) of each 0-d tensor of
+    `values`, in one all-reduce (unchanged without a process group)."""
+    if not active() or _alone(group):
         return values
     keys = list(values)
-    stacked = _all_reduce_(torch.stack([values[k].detach().float() for k in keys])).div_(world())
+    stacked = _all_reduce_(torch.stack([values[k].detach().float() for k in keys]), dist.ReduceOp.SUM,
+                           group).div_(group_size(group))
     return {k: stacked[i] for i, k in enumerate(keys)}
 

@@ -16,7 +16,8 @@ class loss's weight sum are the global batch's, summed over the ranks and
 divided by their number (d2's `num_masks / world_size`), and the
 contrastive loss is the InfoNCE over the global batch, every other rank's
 texts and queries among the negatives (the normalized features gathered
-with gradients).
+with gradients). The ranks are those of the data group: under tensor
+parallelism the ranks of a model group hold the same rows.
 
 Random points are drawn by the caller (`SetCriterion.make_draws`) and passed
 in, one dict per prediction set. The matcher's assignments for every
@@ -144,9 +145,10 @@ class SetCriterion:
         # the targets are the diagonal: -log_softmax picked there, as the
         # class loss does (F.cross_entropy's NLLLoss has no deterministic
         # CUDA version)
-        q_all, t_all = mesh.all_gather(torch.cat([q, t], dim=1)).split([q.shape[1], t.shape[1]], dim=1)
+        q_all, t_all = mesh.all_gather(torch.cat([q, t], dim=1), mesh.data_group()).split(
+            [q.shape[1], t.shape[1]], dim=1)
         mine = torch.arange(b, device=q.device)
-        theirs = mesh.rank() * b + mine
+        theirs = mesh.data_rank() * b + mine
         l_qt = -torch.log_softmax(q @ t_all.T * scale, dim=1)[mine, theirs].mean()
         l_tq = -torch.log_softmax(q_all @ t.T * scale, dim=0)[theirs, mine].mean()
         return l_qt + l_tq
@@ -175,9 +177,10 @@ class SetCriterion:
         # number of ranks, in one all-reduce
         classes = [self._class_targets(lo["pred_logits"], tgt_labels, q_for_t[li], tgt_valid)
                    for li, lo in enumerate(layers)]
-        norms = mesh.all_reduce_sum(torch.stack([tgt_valid.sum().to(torch.float32)] + [w.sum() for _, w in classes]))
-        num_masks = torch.clamp(norms[0], min=1.0) / mesh.world()
-        w_sums = norms[1:] / mesh.world()
+        norms = mesh.all_reduce_sum(torch.stack([tgt_valid.sum().to(torch.float32)] + [w.sum() for _, w in classes]),
+                                    mesh.data_group())
+        num_masks = torch.clamp(norms[0], min=1.0) / mesh.data_world()
+        w_sums = norms[1:] / mesh.data_world()
 
         losses = {}
         total = 0.0

@@ -268,13 +268,16 @@ def monodepth_loss(
         # BCEWithLogits(prob, 0) == softplus(prob); masked mean over static pixels
         bce_map = F.softplus(prob_s[..., 0]).reshape(Fn, B, h, w)
         # the global batch's per-frame threshold, static count and `all`
-        mean_mag = mesh.all_reduce_sum(disp_mag.sum(dim=(1, 2, 3))) / (mesh.world() * B * h * w)
+        # (over the data group: under tensor parallelism a model group's
+        # ranks hold the same rows)
+        data = mesh.data_group()
+        mean_mag = mesh.all_reduce_sum(disp_mag.sum(dim=(1, 2, 3)), data) / (mesh.data_world() * B * h * w)
         static = (disp_mag < mean_mag[:, None, None, None]).to(disp_s.dtype)
         counts = mesh.all_reduce_sum(torch.cat([static.sum(dim=(1, 2, 3)),
-                                                (static.sum(dim=(2, 3)) == 0).sum(dim=1).to(static.dtype)]))
+                                                (static.sum(dim=(2, 3)) == 0).sum(dim=1).to(static.dtype)]), data)
         n_static, all_have_static = counts[:Fn], counts[Fn:] == 0  # (F,) each
         # this rank's share: the mean over the ranks of the shares is the global masked mean
-        bce = (bce_map * static).sum(dim=(1, 2, 3)) / (n_static.clamp(min=1) / mesh.world())
+        bce = (bce_map * static).sum(dim=(1, 2, 3)) / (n_static.clamp(min=1) / mesh.data_world())
         ps["m_sparsity"] = torch.where(all_have_static, 3.0 * bce, 0.0).mean() / div
 
         ps["m_smooth"] = compute_smooth_loss(mask_s, color_sf) / div

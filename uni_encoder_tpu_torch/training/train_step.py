@@ -41,6 +41,23 @@ global batch's); its gradients are averaged over the ranks before the clip
 and AdamW, so every rank makes the same update; and the reported losses
 are their means over the ranks, the global values.
 
+Tensor parallelism: on a (data x model) grid (`mesh.init_grid`) with a
+model whose large kernels `parallel/tensor.py::shard_params` split over the
+model group (before `Trainer.init(model=...)`, so that AdamW's moments of a
+sharded parameter are its blocks), the ranks of one model group hold the
+same rows and every reduction over the batch above runs over the data
+group: the draws are the global batch's, kept by data index, a sharded
+parameter's gradient averaged over the data group (the ranks that hold the
+same block), the losses likewise. A replicated parameter's gradient is
+averaged over the whole world: the ranks of a model group compute the same
+one in exact arithmetic, but a library may round otherwise on each (on one
+card shared by two ranks cuDNN chose other backward algorithms on each, by
+the workspace each could allocate), and the mean keeps every rank's update
+the same bytes. The clip takes the
+global norm: the replicated gradients' squares once, plus the sharded
+blocks' squares summed over the model group. The step is then one
+process's step at the global batch.
+
 Determinism: `Trainer(cfg, deterministic=True)` takes each step with
 cuDNN's benchmark off, `cudnn.deterministic` on and
 `torch.use_deterministic_algorithms(True)`, and restores all three after
@@ -67,7 +84,7 @@ import torch
 
 from ..config import Config
 from ..models.oneformer import UniEncoder, disparity_strides
-from ..parallel import mesh
+from ..parallel import mesh, tensor
 from . import monodepth
 from .criterion import SetCriterion
 
@@ -135,7 +152,9 @@ class FusedAdamW:
     `make_optimizer`: the clip scale is exactly
     `1 if g < clip else clip / (g + 1e-16)`, the LR is taken at the count
     before the increment, and a parameter with no gradient counts as a zero
-    gradient (weight decay still moves it)."""
+    gradient (weight decay still moves it). A parameter split over a model
+    group (`parallel/tensor.py`) adds its block's squares to the global
+    norm's, summed over that group."""
 
     def __init__(self, base_lr: float = 1e-4, weight_decay: float = 0.05, backbone_multiplier: float = 0.1,
                  clip_value: float = 0.01, max_iter: int = 90000, poly_power: float = 0.9, b1: float = 0.9,
@@ -165,7 +184,14 @@ class FusedAdamW:
         ps = [[params[n] for n in bucket] for bucket in state.names]
         gs = [[p.grad if p.grad is not None else torch.zeros_like(p) for p in bucket] for bucket in ps]
         flat = [g for bucket in gs for g in bucket]
-        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(flat))) if flat else torch.zeros(())
+        shards = [tensor.shard_of(p) for bucket in ps for p in bucket]
+        norms = torch._foreach_norm(flat) if flat else []
+        terms = [n for n, s in zip(norms, shards) if s is None]
+        blocks = [n for n, s in zip(norms, shards) if s is not None]
+        if blocks:  # the sharded parameters' whole gradients: their blocks' squares summed over the model group
+            group = next(s for s in shards if s is not None).group
+            terms.append(torch.sqrt(mesh.all_reduce_sum(torch.stack(blocks).square().sum(), group)))
+        gnorm = torch.linalg.vector_norm(torch.stack(terms)) if terms else torch.zeros(())
         scale = torch.where(gnorm < self.clip_value, 1.0, self.clip_value / (gnorm + 1e-16))
         count = state.count + 1
         # the bias corrections and the step size in fp32, as the JAX copy
@@ -237,12 +263,16 @@ class Trainer:
                                     max_iter=s.max_iter)
 
     # -------------------------------------------------------------- init
+    def build_model(self, seed: int = 0) -> UniEncoder:
+        """The training model with random weights from `seed`."""
+        return UniEncoder(self.model_cfg, device=self.device, seed=seed, task_seq_len=self.cfg.input.task_seq_len)
+
     def init(self, seed: int = 0, model: Optional[UniEncoder] = None) -> TrainState:
         """A fresh state: the model with random weights from `seed` (or the
-        given training model, e.g. with a state dict loaded), zero moments."""
+        given training model, e.g. with a state dict loaded, or sharded by
+        `parallel/tensor.py::shard_params`), zero moments."""
         if model is None:
-            model = UniEncoder(self.model_cfg, device=self.device, seed=seed,
-                               task_seq_len=self.cfg.input.task_seq_len)
+            model = self.build_model(seed)
         if not model.cfg.is_train:
             raise ValueError("the trainer needs a model built with is_train")
         return TrainState(0, model, self.optimizer.init(dict(model.named_parameters())))
@@ -347,8 +377,9 @@ class Trainer:
         (0-d tensors on the device; reading them waits for the step).
 
         In a process group the batches are this rank's rows of the global
-        batch, the draws (made here, or given) the global batch's, and the
-        gradients, the update and the losses returned the global batch's."""
+        batch (those of its data index on a grid), the draws (made here, or
+        given) the global batch's, and the gradients, the update and the
+        losses returned the global batch's."""
         model = state.model
         device = next(model.parameters()).device
         if self.deterministic and device.type == "cuda":
@@ -356,17 +387,23 @@ class Trainer:
         if draws is None:
             if generator is None:
                 raise ValueError("give a generator or the draws")
-            draws = self.make_draws(generator, seg_batch, seq_batch, device, world=mesh.world())
-        draws = self.shard_draws(draws, mesh.rank(), mesh.world())
+            draws = self.make_draws(generator, seg_batch, seq_batch, device, world=mesh.data_world())
+        draws = self.shard_draws(draws, mesh.data_rank(), mesh.data_world())
         model.train()
         model.zero_grad(set_to_none=True)
         with _algorithms(self.deterministic):
             losses = self.losses(state, seg_batch, seq_batch, draws)
             losses["loss"].backward()
-            mesh.all_reduce_gradients(model.parameters())
+            # a replicated gradient is averaged over every rank that holds the parameter, the whole world: the
+            # ranks of a model group compute it from the same inputs, but a library may take another algorithm
+            # on each (cuDNN picks a convolution's by the workspace it can allocate) and round otherwise; a
+            # block's over the data group, the ranks that hold that block (without a grid: no blocks)
+            params = list(model.parameters())
+            mesh.all_reduce_gradients([p for p in params if tensor.shard_of(p) is None])
+            mesh.all_reduce_gradients([p for p in params if tensor.shard_of(p) is not None], mesh.data_group())
             opt = self.optimizer.step(state.opt, dict(model.named_parameters()))
         state.step += 1
         metrics = {k: (v.detach() if torch.is_tensor(v) else torch.tensor(v)) for k, v in losses.items()}
-        metrics = mesh.mean_over_ranks(metrics)
+        metrics = mesh.mean_over_ranks(metrics, mesh.data_group())
         metrics.update(opt)
         return state, metrics
